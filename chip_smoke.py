@@ -10,26 +10,30 @@ checks it against the same engine on the CPU.  Phases:
 
 1. card, power limit, torch / CUDA versions, TF32 flags (both turned off);
 2. build of the CUDA log-mel kernel from ``sed_tpu_torch/csrc`` (nvcc,
-   sm_90a) and its time;
+   sm_90a), its time, and ptxas's registers and spills (no spills);
 3. kernel against its plain PyTorch version at 8, 16 and 32 kHz, with a
-   frame count no tile divides, near-silent and digitally silent clips
-   (rtol 1e-4, atol 1e-3 dB);
+   frame count no tile divides, near-silent, digitally silent and
+   full-scale clips, and with a mel filter on the Nyquist bin (rtol 1e-4,
+   atol 1e-3 dB);
 4. ``predict_clips`` on 64 int16 bench-corpus clips on the GPU: the
    kernel's launch count must rise; events and XML identical to the CPU
    engine, framewise output within 1e-4;
 5. ``predict_file`` on a 12 s wav (overlapped windows): events and XML
    identical to the CPU engine;
-6. times on the GPU: kernel against plain log-mel at 32 x 80000 samples
-   (CUDA events, median of 20), ``predict_clips`` clips/s over 512 clips
-   at batch 32, and a profiler breakdown of one batch.
+6. times on the GPU: kernel against plain log-mel at 8, 16 and 32 kHz,
+   batch 1 and 32 of 5 s clips (CUDA events, median of 20, in turns),
+   with the kernel's achieved TFLOP/s; ``predict_clips`` clips/s over 512
+   clips at batch 32; a profiler breakdown of one batch.
 
 Any failure raises (exit code != 0).  Without CUDA, or outside the
 repository, it exits non-zero before printing a result.  The last line
 is the JSON result; the line before it names the card and power limit.
 """
 
+import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -67,8 +71,9 @@ def cuda_ms(fn, runs: int = 20, warmup: int = 3) -> float:
 
 def kernel_inputs(cfg, seed: int):
     """Bench-corpus clips plus a near-silent (level 1e-4, as the corpus's
-    near-silent backgrounds) and a half digitally silent clip, 5 s plus
-    a few hops so that no 64-frame tile divides the frame count."""
+    near-silent backgrounds), a half digitally silent and a full-scale
+    +-1.0 clip, 5 s plus a few hops so that no 64-frame tile divides the
+    frame count."""
     import numpy as np
     from bench_corpus import make_clips
     sr = cfg.sample_rate
@@ -78,7 +83,16 @@ def kernel_inputs(cfg, seed: int):
     quiet = clips[0] / np.sqrt(np.mean(clips[0] ** 2)) * 1e-4
     half_silent = clips[1].copy()
     half_silent[:half_silent.size // 2] = 0.0
-    return np.concatenate([clips, quiet[None], half_silent[None]])
+    full = np.where(clips[2] < 0, -1.0, 1.0).astype(np.float32)
+    return np.concatenate([clips, quiet[None], half_silent[None],
+                           full[None]])
+
+
+def useful_gflop(cfg, rows: int) -> float:
+    """DFT and mel products of the function, per its shapes: rows frames
+    @ (n_fft, 2 * bins), then @ (bins, mel_bins)."""
+    n, bins = cfg.window_size, cfg.window_size // 2 + 1
+    return rows * (2 * n * 2 * bins + 2 * bins * cfg.mel_bins) / 1e9
 
 
 def main() -> None:
@@ -112,23 +126,33 @@ def main() -> None:
     t0 = time.perf_counter()
     lib = _build.load('logmel')
     print(f'[2] built {os.path.relpath(lib.path, REPO)} from '
-          f'sed_tpu_torch/csrc/logmel.cu with nvcc {" ".join(_build.NVCC_FLAGS)}'
-          f' in {time.perf_counter() - t0:.2f} s (nvcc {lib.build_seconds:.2f} s)')
+          f'sed_tpu_torch/csrc/{{logmel.cu,mma_sm90.cuh}} with nvcc '
+          f'{" ".join(_build.NVCC_FLAGS)} in {time.perf_counter() - t0:.2f} '
+          f's (nvcc {lib.build_seconds:.2f} s)')
     for line in lib.build_log.splitlines():
         print(f'[2]   {line}')
+    regs = [int(r) for r in re.findall(r'Used (\d+) registers',
+                                        lib.build_log)]
+    spills = [int(a) + int(b) for a, b in re.findall(
+        r'(\d+) bytes spill stores, (\d+) bytes spill loads', lib.build_log)]
+    print(f'[2] ptxas: registers {regs}, spill bytes {spills}')
+    assert regs and spills and not any(spills), 'ptxas spilled registers'
 
     # -- 3. kernel vs plain ----------------------------------------------
     max_err = 0.0
-    for i, cfg in enumerate((config.AUDIO_8K, config.AUDIO_16K,
-                             config.AUDIO_32K)):
+    cfgs = (config.AUDIO_8K, config.AUDIO_16K, config.AUDIO_32K)
+    nyquist = dataclasses.replace(config.AUDIO_16K, fmax=9600)
+    for i, cfg in enumerate(cfgs + (nyquist,)):
         wav = torch.from_numpy(kernel_inputs(cfg, seed=10 + i)).to(dev)
         got = fused_logmel(wav, cfg)
         want = logmel_plain(wav, cfg)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         max_err = max(max_err, err)
-        print(f'[3] {cfg.name}: {tuple(got.shape)} frames % 64 = '
-              f'{got.shape[1] % 64}, max |kernel - plain| = {err!r} dB, '
+        print(f'[3] {cfg.name} fmax {cfg.fmax}: {tuple(got.shape)} frames % '
+              f'64 = {got.shape[1] % 64}, max |kernel - plain| per clip '
+              f'(4 corpus, 1e-4, half silent, full scale) = '
+              f'{(got - want).abs().amax(dim=(1, 2)).tolist()} dB, '
               f'min {want.min().item():.2f} dB')
         torch.testing.assert_close(got, want, **TOL)
 
@@ -174,20 +198,33 @@ def main() -> None:
           f'{len(file_gpu[0])} events, events and XML identical to the CPU')
 
     # -- 6. times ------------------------------------------------------------
-    wav = torch.from_numpy(make_clips(32, cfg.sample_rate, seconds=5,
-                                      seed=7)).to(dev)
-    got, want = fused_logmel(wav, cfg), logmel_plain(wav, cfg)
-    err = (got - want).abs().max().item()
-    torch.testing.assert_close(got, want, **TOL)
-    max_err = max(max_err, err)
-    times = {}
-    for name, fn in (('plain', logmel_plain), ('kernel', fused_logmel),
-                     ('kernel', fused_logmel), ('plain', logmel_plain)):
-        times.setdefault(name, []).append(cuda_ms(lambda: fn(wav, cfg)))
-    kernel_ms, plain_ms = min(times['kernel']), min(times['plain'])
-    print(f'[6] log-mel 32 x 80000 on {card}: kernel {times["kernel"]} ms, '
-          f'plain {times["plain"]} ms (median of 20 each, in turns), max '
-          f'|kernel - plain| {err!r} dB')
+    for rate in cfgs:
+        for batch in (1, 32):
+            wav = torch.from_numpy(make_clips(batch, rate.sample_rate,
+                                              seconds=5, seed=7)).to(dev)
+            got, want = fused_logmel(wav, rate), logmel_plain(wav, rate)
+            err = (got - want).abs().max().item()
+            torch.testing.assert_close(got, want, **TOL)
+            max_err = max(max_err, err)
+            times = {}
+            for name, fn in (('plain', logmel_plain),
+                             ('kernel', fused_logmel),
+                             ('kernel', fused_logmel),
+                             ('plain', logmel_plain)):
+                times.setdefault(name, []).append(
+                    cuda_ms(lambda: fn(wav, rate)))
+            best = min(times['kernel'])
+            gflop = useful_gflop(rate, batch * got.shape[1])
+            tensor = 2 * batch * got.shape[1] * rate.window_size ** 2
+            print(f'[6] log-mel {rate.name} {batch} x {wav.shape[1]} on '
+                  f'{card}: kernel {times["kernel"]} ms, plain '
+                  f'{times["plain"]} ms (median of 20 each, in turns); '
+                  f'kernel {gflop / best:.1f} TFLOP/s useful '
+                  f'({gflop:.3f} GFLOP), fp64 DFT '
+                  f'{tensor / best / 1e9:.1f} TFLOP/s on the tensor cores; '
+                  f'max |kernel - plain| {err!r} dB')
+            if rate is cfg and batch == 32:     # the main path's batch
+                kernel_ms, plain_ms = best, min(times['plain'])
 
     bench = np.concatenate([pcm] * 8)                      # 512 clips
     gpu.predict_clips(bench[:64])                          # warm-up

@@ -3,9 +3,12 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into ``build/sed_tpu_torch/`` at the
 repository root, then loaded with ``ctypes``.  The library's file name
-carries a hash of the source and the flags, so an edited source is
-rebuilt and a stale library is never loaded.  Nothing is built when the
-module is imported; there is no fallback when ``nvcc`` is missing.
+carries a hash of every source under ``csrc/`` (``.cu`` and the ``.cuh``
+headers they include) and of the flags, so an edited source or header
+is rebuilt and a stale library is never loaded.  The compiler's output
+(ptxas registers and spills) is kept beside the library.  Nothing is
+built when the module is imported; there is no fallback when ``nvcc``
+is missing.
 """
 
 from __future__ import annotations
@@ -47,22 +50,38 @@ class KernelLibrary:
         self.name = name
         self.path = path
         self.lib = lib
-        self.build_log = build_log          # nvcc/ptxas output ('' if cached)
+        self.build_log = build_log          # nvcc/ptxas output of the build
         self.build_seconds = build_seconds  # 0.0 when loaded from the cache
 
     def error_string(self, code: int) -> str:
         return self.lib.sed_cuda_error_string(code).decode()
 
 
+def source_digest(csrc: str = CSRC, flags=NVCC_FLAGS) -> str:
+    """Hash of the flags and of every ``.cu`` and ``.cuh`` file under
+    ``csrc`` (names and contents)."""
+    h = hashlib.sha256(' '.join(flags).encode())
+    for root, dirs, files in os.walk(csrc):
+        dirs.sort()
+        for fname in sorted(files):
+            if fname.endswith(('.cu', '.cuh')):
+                path = os.path.join(root, fname)
+                h.update(os.path.relpath(path, csrc).encode() + b'\0')
+                with open(path, 'rb') as f:
+                    h.update(f.read() + b'\0')
+    return h.hexdigest()[:16]
+
+
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> KernelLibrary:
     """Compile ``csrc/<name>.cu`` (if not built yet) and load it."""
     src = os.path.join(CSRC, f'{name}.cu')
-    with open(src, 'rb') as f:
-        digest = hashlib.sha256(
-            f.read() + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    path = os.path.join(BUILD_DIR, f'lib{name}-{digest}.so')
+    path = os.path.join(BUILD_DIR,
+                        f'lib{name}-{source_digest(CSRC, NVCC_FLAGS)}.so')
     log, seconds = '', 0.0
+    if os.path.isfile(path + '.log'):
+        with open(path + '.log') as f:
+            log = f.read()
     if not os.path.isfile(path):
         os.makedirs(BUILD_DIR, exist_ok=True)
         # compile to a private file and rename: concurrent processes never
@@ -74,12 +93,15 @@ def load(name: str) -> KernelLibrary:
                                   capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError(f'nvcc failed on {src}:\n{proc.stderr}')
+            log = proc.stdout + proc.stderr
+            with open(tmp + '.log', 'w') as f:
+                f.write(log)
+            os.rename(tmp + '.log', path + '.log')
             os.rename(tmp, path)
         finally:
             if os.path.exists(tmp):
                 os.unlink(tmp)
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
     lib = ctypes.CDLL(path)
     lib.sed_cuda_error_string.restype = ctypes.c_char_p
     lib.sed_cuda_error_string.argtypes = [ctypes.c_int]
