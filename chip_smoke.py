@@ -23,7 +23,26 @@ checks it against the same engine on the CPU.  Phases:
 6. times on the GPU: kernel against plain log-mel at 8, 16 and 32 kHz,
    batch 1 and 32 of 5 s clips (CUDA events, median of 20, in turns),
    with the kernel's achieved TFLOP/s; ``predict_clips`` clips/s over 512
-   clips at batch 32; a profiler breakdown of one batch.
+   clips at batch 32; a profiler breakdown of one batch;
+7. Cnn_9layers_Transformer_FrameAtt at full width on
+   ``compat.bench_weights.transformer_variables``: ``predict_clips`` on
+   the 64 int16 clips, GPU against CPU (events and XML identical,
+   framewise and clipwise within 1e-4, 496 frames); clips/s over 512
+   clips at batch 32; a profiler breakdown of one batch;
+8. ``predict_clips_windowed`` (the ``inference_prob_overlap`` path) on 32
+   bench-corpus clips of 10 s with the GRU model, for the five
+   [overlap_value, window] combinations: events identical GPU against
+   CPU, segment-based ER and F1 against the clips' ground truth equal;
+   clips/s per combination; the kernel against plain at the 6 s, 7 s
+   and 10 s inputs of the evaluation path (601, 701 and 1001 frames),
+   checked and timed;
+9. the ``Evaluator`` forward (``inference_prob``'s) on the 32 clips of
+   10 s from an in-memory batch list with a ragged last batch, GPU
+   against CPU: framewise within 1e-4.
+
+Phases 4, 7, 8 and 9 drive the main paths: each sets the kernel's launch
+count to 0 just before and reads it just after, and fails if the kernel
+was not launched.
 
 Any failure raises (exit code != 0).  Without CUDA, or outside the
 repository, it exits non-zero before printing a result.  The last line
@@ -95,6 +114,57 @@ def useful_gflop(cfg, rows: int) -> float:
     return rows * (2 * n * 2 * bins + 2 * bins * cfg.mel_bins) / 1e9
 
 
+def time_kernel(fused_logmel, logmel_plain, wav, cfg):
+    """Kernel and plain times (ms, median of 20 each, in turns plain,
+    kernel, kernel, plain) and max |kernel - plain| in dB."""
+    import torch
+    got, want = fused_logmel(wav, cfg), logmel_plain(wav, cfg)
+    torch.testing.assert_close(got, want, **TOL)
+    times = {}
+    for name, fn in (('plain', logmel_plain), ('kernel', fused_logmel),
+                     ('kernel', fused_logmel), ('plain', logmel_plain)):
+        times.setdefault(name, []).append(cuda_ms(lambda: fn(wav, cfg)))
+    return times, (got - want).abs().max().item(), got.shape[1]
+
+
+def clips_per_s(engine, bench, runs: int = 3):
+    """``predict_clips`` clips/s over ``bench`` after a warm-up, host
+    clock around each run (which ends in the host's decode)."""
+    import torch
+    engine.predict_clips(bench[:64])
+    rates = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev, _ = engine.predict_clips(bench)
+        rates.append(len(bench) / (time.perf_counter() - t0))
+    return rates, sum(map(len, ev))
+
+
+def profile_batch(engine, pcm, tag: str) -> None:
+    """Profiler breakdown of one ``predict_clips`` call: wall, device
+    kernel time, device idle share, the top kernels by self time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.predict_clips(pcm)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA),
+                  key=lambda e: -e.self_device_time_total)
+    busy_us = sum(e.self_device_time_total for e in rows)
+    print(f'[{tag}] profile of predict_clips({len(pcm)} clips): wall '
+          f'{wall_us:.0f} us, device kernels {busy_us:.0f} us, device idle '
+          f'share {1 - busy_us / wall_us:.3f}')
+    for e in rows[:12]:
+        print(f'[{tag}]   {e.self_device_time_total:10.0f} us  '
+              f'x{e.count:<4d} {e.key[:90]}')
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -108,7 +178,7 @@ def main() -> None:
     from sed_tpu_torch.dsp.frontend import logmel_plain
     from sed_tpu_torch.ops.logmel_kernel import fused_logmel
     from sed_tpu_torch.serve.engine import (SedInferenceEngine, disable_tf32,
-                                            tf32_flags)
+                                            tf32_flags, window_starts)
     from bench_corpus import make_clips
 
     # -- 1. card and numerics -------------------------------------------
@@ -202,20 +272,12 @@ def main() -> None:
         for batch in (1, 32):
             wav = torch.from_numpy(make_clips(batch, rate.sample_rate,
                                               seconds=5, seed=7)).to(dev)
-            got, want = fused_logmel(wav, rate), logmel_plain(wav, rate)
-            err = (got - want).abs().max().item()
-            torch.testing.assert_close(got, want, **TOL)
+            times, err, frames = time_kernel(fused_logmel, logmel_plain, wav,
+                                             rate)
             max_err = max(max_err, err)
-            times = {}
-            for name, fn in (('plain', logmel_plain),
-                             ('kernel', fused_logmel),
-                             ('kernel', fused_logmel),
-                             ('plain', logmel_plain)):
-                times.setdefault(name, []).append(
-                    cuda_ms(lambda: fn(wav, rate)))
             best = min(times['kernel'])
-            gflop = useful_gflop(rate, batch * got.shape[1])
-            tensor = 2 * batch * got.shape[1] * rate.window_size ** 2
+            gflop = useful_gflop(rate, batch * frames)
+            tensor = 2 * batch * frames * rate.window_size ** 2
             print(f'[6] log-mel {rate.name} {batch} x {wav.shape[1]} on '
                   f'{card}: kernel {times["kernel"]} ms, plain '
                   f'{times["plain"]} ms (median of 20 each, in turns); '
@@ -227,35 +289,126 @@ def main() -> None:
                 kernel_ms, plain_ms = best, min(times['plain'])
 
     bench = np.concatenate([pcm] * 8)                      # 512 clips
-    gpu.predict_clips(bench[:64])                          # warm-up
-    rates = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ev, _ = gpu.predict_clips(bench)
-        rates.append(len(bench) / (time.perf_counter() - t0))
+    rates, n_events = clips_per_s(gpu, bench)
     print(f'[6] predict_clips 512 int16 clips, batch 32, on {card}: '
           f'{[round(r, 1) for r in rates]} clips/s (3 runs), '
-          f'{sum(map(len, ev))} events')
+          f'{n_events} events')
+    profile_batch(gpu, pcm[:32], '6')
 
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        gpu.predict_clips(pcm[:32])
-        wall_us = (time.perf_counter() - t0) * 1e6
-    rows = sorted((e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA),
-                  key=lambda e: -e.self_device_time_total)
-    busy_us = sum(e.self_device_time_total for e in rows)
-    print(f'[6] profile of predict_clips(32 clips): wall {wall_us:.0f} us, '
-          f'device kernels {busy_us:.0f} us, device idle share '
-          f'{1 - busy_us / wall_us:.3f}')
-    for e in rows[:12]:
-        print(f'[6]   {e.self_device_time_total:10.0f} us  x{e.count:<4d} '
-              f'{e.key[:90]}')
+    # -- 7. the Transformer on the card ------------------------------------
+    from sed_tpu_torch.compat.bench_weights import transformer_variables
+    from sed_tpu_torch.compat.from_flax import load_variables
+    from sed_tpu_torch.models.registry import get_model
+    tvars = transformer_variables(seed=0)
+
+    def transformer(device):
+        model = get_model('Cnn_9layers_Transformer_FrameAtt', cfg)
+        return load_variables(model, tvars).to(device)
+
+    tgpu = SedInferenceEngine(transformer(dev), cfg, dev, batch_size=32)
+    tcpu = SedInferenceEngine(transformer('cpu'), cfg, 'cpu', batch_size=32)
+    fused_logmel.launches = 0
+    ev_gpu, xml_gpu = tgpu.predict_clips(pcm)
+    t_launches = fused_logmel.launches
+    assert t_launches > 0, 'the Transformer path did not launch the kernel'
+    ev_cpu, xml_cpu = tcpu.predict_clips(pcm)
+    assert ev_gpu == ev_cpu, 'Transformer events differ between GPU and CPU'
+    assert xml_gpu == xml_cpu, 'Transformer XML differs between GPU and CPU'
+    fw_gpu, cw_gpu = tgpu.infer_framewise(pcm)
+    fw_cpu, cw_cpu = tcpu.infer_framewise(pcm)
+    assert fw_gpu.shape == (64, 496, 25) and np.isfinite(fw_gpu).all()
+    fw_err = float(np.abs(fw_gpu - fw_cpu).max())
+    cw_err = float(np.abs(cw_gpu - cw_cpu).max())
+    print(f'[7] Transformer predict_clips on {dev}: {len(pcm)} clips, '
+          f'{sum(map(len, ev_gpu))} events, log-mel kernel launches '
+          f'{t_launches}; events and XML identical to the CPU engine; max '
+          f'|framewise gpu - cpu| = {fw_err!r}, clipwise {cw_err!r}')
+    assert fw_err <= FRAMEWISE_ATOL and cw_err <= FRAMEWISE_ATOL
+    rates, n_events = clips_per_s(tgpu, bench)
+    print(f'[7] Transformer predict_clips 512 int16 clips, batch 32, on '
+          f'{card}: {[round(r, 1) for r in rates]} clips/s (3 runs), '
+          f'{n_events} events')
+    profile_batch(tgpu, pcm[:32], '7')
+
+    # -- 8. on-device windowed merging, GPU vs CPU ---------------------------
+    from sed_tpu_torch._host import events as post_events, segment_metrics
+    from sed_tpu_torch.cli.main_strong import PARAM_COMBINATIONS
+    clips10, truth = make_clips(32, cfg.sample_rate, seconds=10, seed=21,
+                                return_events=True)
+    names = [f'clip{i}_0.wav' for i in range(len(clips10))]
+    w_launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_csv = os.path.join(tmp, 'reference.csv')
+        with open(ref_csv, 'w') as f:
+            for name, evs in zip(names, truth):
+                for e in evs:
+                    f.write(f'{name},{e["onset"]},{e["offset"]},'
+                            f'{e["event_label"]}\n')
+
+        def er_f1(per_clip, tag):
+            sub = os.path.join(tmp, f'{tag}.tsv')
+            post_events.write_submission(
+                [e for evs in per_clip for e in evs], sub)
+            overall = segment_metrics.official_evaluate(ref_csv,
+                                                        sub)['overall']
+            return (overall['error_rate']['error_rate'],
+                    overall['f_measure']['f_measure'])
+
+        for step, window in PARAM_COMBINATIONS:
+            kw = dict(sample_duration=window, overlap=True,
+                      overlap_value=step, batch_size=32)
+            wgpu = SedInferenceEngine(gpu.model, cfg, dev, **kw)
+            wcpu = SedInferenceEngine(cpu.model, cfg, 'cpu', **kw)
+            fused_logmel.launches = 0
+            ev_gpu = wgpu.predict_clips_windowed(clips10, names, 10.0, step)
+            launched = fused_logmel.launches
+            assert launched > 0, 'the windowed path did not launch the kernel'
+            w_launches += launched
+            ev_cpu = wcpu.predict_clips_windowed(clips10, names, 10.0, step)
+            assert ev_gpu == ev_cpu, f'windowed events differ at {step, window}'
+            scores = er_f1(ev_gpu, 'gpu')
+            assert scores == er_f1(ev_cpu, 'cpu')
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            wgpu.predict_clips_windowed(clips10, names, 10.0, step)
+            rate = len(clips10) / (time.perf_counter() - t0)
+            print(f'[8] windowed [{step}, {window}] on {card}: '
+                  f'{len(window_starts(10.0, window, True, step))} windows a '
+                  f'clip, {sum(map(len, ev_gpu))} events identical to the '
+                  f'CPU, kernel launches {launched}; segment ER {scores[0]!r} '
+                  f'F1 {scores[1]!r} (GPU = CPU); {rate:.1f} clips/s '
+                  f'(second run)')
+
+    for seconds, batch in ((6, 27), (7, 28), (10, 32)):
+        wav = torch.from_numpy(np.ascontiguousarray(
+            clips10[:batch, :seconds * cfg.sample_rate])).to(dev)
+        times, err, frames = time_kernel(fused_logmel, logmel_plain, wav, cfg)
+        max_err = max(max_err, err)
+        print(f'[8] log-mel {cfg.name} {batch} x {seconds} s ({frames} '
+              f'frames) on {card}: kernel {times["kernel"]} ms, plain '
+              f'{times["plain"]} ms (median of 20 each, in turns); max '
+              f'|kernel - plain| {err!r} dB')
+
+    # -- 9. the Evaluator forward, GPU vs CPU --------------------------------
+    from sed_tpu_torch.eval.evaluator import Evaluator
+    loader = [{'audio_name': np.array(names[i:i + 12]),
+               'waveform': clips10[i:i + 12]}
+              for i in range(0, len(clips10), 12)]   # 12, 12, 8
+    fused_logmel.launches = 0
+    out_gpu = Evaluator(gpu.model, dev).forward(loader)
+    e_launches = fused_logmel.launches
+    assert e_launches > 0, 'the evaluator did not launch the kernel'
+    out_cpu = Evaluator(cpu.model, 'cpu').forward(loader)
+    assert out_gpu['framewise_output'].shape == (32, 1000, 25)
+    assert list(out_gpu['audio_name']) == names
+    e_err = float(np.abs(out_gpu['framewise_output']
+                         - out_cpu['framewise_output']).max())
+    c_err = float(np.abs(out_gpu['clipwise_output']
+                         - out_cpu['clipwise_output']).max())
+    print(f'[9] Evaluator forward on {dev}: 32 clips of 10 s in batches of '
+          f'12/12/8, kernel launches {e_launches}; max |framewise gpu - '
+          f'cpu| = {e_err!r}, clipwise {c_err!r}')
+    assert e_err <= FRAMEWISE_ATOL and c_err <= FRAMEWISE_ATOL
 
     blocked = [m for m in sys.modules
                if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',
@@ -266,7 +419,8 @@ def main() -> None:
         'name': 'fused_logmel', 'route': 'cuda',
         'source': 'sed_tpu_torch/csrc/logmel.cu',
         'replaces': 'sed_tpu/ops/logmel_kernel.py:48',
-        'launches': launches, 'max_abs_err': max_err,
+        'launches': launches + t_launches + w_launches + e_launches,
+        'max_abs_err': max_err,
         'ms': kernel_ms, 'plain_ms': plain_ms}]}))
     print(card_line())
     print(json.dumps({'ok': True, 'device': {

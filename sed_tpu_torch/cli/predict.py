@@ -11,7 +11,9 @@ windows of N files into shared forwards; the XML is the same.
         --checkpoint tools/bench_checkpoint.npz --device cuda
 
 ``--device`` must be stated.  ``--checkpoint`` takes a ``sed_tpu`` .npz
-checkpoint.
+or a reference .pth checkpoint; without it the workspace's
+``best_<feature>_<quality>.pth`` is read.  ``--sed_thresholds`` reads the
+pickle that ``optimize_thresholds optimize_sed_thresholds`` wrote.
 """
 
 from __future__ import annotations
@@ -21,20 +23,12 @@ import os
 import time
 
 from sed_tpu_torch._host import cli_common, config
+from sed_tpu_torch.cli import common
 
 
 def _build_engine(args, cfg, ws):
-    from sed_tpu_torch.compat.from_flax import load_npz
-    from sed_tpu_torch.serve.engine import SedInferenceEngine, disable_tf32
-    if args.checkpoint is None or not args.checkpoint.endswith('.npz'):
-        raise SystemExit('--checkpoint must name a sed_tpu .npz checkpoint '
-                         '(Orbax directories, .pth files and random init '
-                         'are not supported by this port yet)')
-    if args.feature_type != 'logmel':
-        raise SystemExit(f'--feature_type {args.feature_type}: only logmel '
-                         'is ported')
-    disable_tf32()
-    model = load_npz(args.checkpoint, args.model_type, cfg, args.device)
+    from sed_tpu_torch.serve.engine import SedInferenceEngine
+    model = common.build_model(args, cfg, ws)
     sed_params = cli_common.load_sed_params(args, cfg, ws,
                                             config.PREDICT_SED_PARAMS)
     return SedInferenceEngine(
@@ -105,10 +99,7 @@ def get_parser():
     sub.add_argument('--overlap', action='store_true', default=False)
     sub.add_argument('--sample_duration', type=int, default=5)
     sub.add_argument('--overlap_value', type=float, default=1.0)
-    sub.add_argument('--checkpoint', type=str, default=None,
-                     help='sed_tpu .npz checkpoint (required)')
-    sub.add_argument('--device', type=str, required=True,
-                     help="torch device to run on, e.g. 'cuda' or 'cpu'")
+    common.add_model_args(sub)
     sub.add_argument('--bulk', type=int, default=0,
                      help='batch the windows of this many files into '
                           'shared forwards (0 = one file at a time)')

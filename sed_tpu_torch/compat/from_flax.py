@@ -11,17 +11,22 @@ The input is the JAX package's variables tree as nested numpy dicts
 * ``gru/{fw,bw}/{w_ih,w_hh,b_ih,b_hh}`` -> ``gru.weight_ih_l0[_reverse]``
   and the rest; ``sed_tpu`` already stores torch's (r, z, n) gate order.
 
-Orbax checkpoint directories need JAX to read and are not handled here.
+``load_checkpoint`` also reads the reference's ``.pth`` checkpoints:
+``torch.load`` gives the tensors, ``sed_tpu.compat.torch_loader`` (numpy
+only, shared) maps the reference's names onto a flax tree, and the tree
+goes through the same map as a ``.npz``.  Orbax checkpoint directories
+need JAX to read and are refused with the export to use.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict
 
 import numpy as np
 import torch
 
-from sed_tpu_torch._host import npz_ckpt
+from sed_tpu_torch._host import npz_ckpt, torch_loader
 
 _BN = {'scale': 'weight', 'bias': 'bias'}
 _STATS = {'mean': 'running_mean', 'var': 'running_var'}
@@ -76,10 +81,44 @@ def load_variables(model: torch.nn.Module, variables: dict):
     return model
 
 
+def _model_with(variables: dict, model_type: str, cfg,
+                device) -> torch.nn.Module:
+    from sed_tpu_torch.models.registry import get_model
+    model = get_model(model_type, cfg)
+    load_variables(model, variables)
+    return model.to(torch.device(device)).eval()
+
+
 def load_npz(path: str, model_type: str, cfg, device) -> torch.nn.Module:
     """A registry model with the weights of a ``sed_tpu`` .npz checkpoint,
     on ``device``, in eval mode."""
-    from sed_tpu_torch.models.registry import get_model
-    model = get_model(model_type, cfg)
-    load_variables(model, npz_ckpt.load_variables_npz(path))
-    return model.to(torch.device(device)).eval()
+    return _model_with(npz_ckpt.load_variables_npz(path), model_type, cfg,
+                       device)
+
+
+def pth_variables(path: str) -> dict:
+    """A reference ``.pth`` checkpoint -> flax variables tree.  Takes the
+    training layout ``{'iteration', 'model', 'optimizer'}`` and a bare
+    state_dict; ``module.`` prefixes are stripped by the name map."""
+    obj = torch.load(path, map_location='cpu', weights_only=True)
+    state = obj['model'] if isinstance(obj, dict) and 'model' in obj \
+        else obj
+    return torch_loader.state_dict_to_variables(
+        {k: v.numpy() for k, v in state.items()})
+
+
+def load_checkpoint(path: str, model_type: str, cfg,
+                    device) -> torch.nn.Module:
+    """A registry model with the weights of a ``sed_tpu`` ``.npz`` or a
+    reference ``.pth`` checkpoint, on ``device``, in eval mode."""
+    if os.path.isdir(path):
+        raise ValueError(
+            f'{path} is an Orbax checkpoint directory, which needs JAX to '
+            'read; export it once with sed_tpu.utils.npz_ckpt.'
+            'save_variables_npz and pass the .npz')
+    if path.endswith('.npz'):
+        return load_npz(path, model_type, cfg, device)
+    if path.endswith('.pth'):
+        return _model_with(pth_variables(path), model_type, cfg, device)
+    raise ValueError(f'{path}: a checkpoint is a sed_tpu .npz or a '
+                     'reference .pth')

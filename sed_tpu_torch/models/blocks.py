@@ -5,9 +5,12 @@ Convolutions run channels-first, (B, C, T, F), as PyTorch prefers; the
 GRU and attention head take the JAX layout (B, T, C).  The BiGRU is
 ``nn.GRU``, whose gate layout (r, z, n) and ``n = tanh(W_in x + b_in +
 r * (W_hn h + b_hn))`` are what ``sed_tpu`` stores and computes.
+``MultiHead`` is the reference's one-block self-attention.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -92,3 +95,37 @@ class BiGRU(nn.GRU):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return super().forward(x)[0]
+
+
+class MultiHead(nn.Module):
+    """The reference's single self-attention block, (B, T, d_model) ->
+    (B, T, d_model): QKV projections, softmax(q k^T / sqrt(d_k)) v over
+    8 heads of d_k = d_v = 64, output projection, ReLU.
+
+    Reference quirk kept (``sed_tpu/models/blocks.py:241-279``): no
+    residual connection and no layer norm.  The dropouts are inert in
+    eval, the only mode ported.  The attention is plain fp32 ``matmul``
+    and ``softmax``, as ``sed_tpu``'s einsum; not
+    ``F.scaled_dot_product_attention``, whose CUDA backend is picked at
+    run time and sums in another order.
+    """
+
+    n_head, d_k, d_v = 8, 64, 64
+
+    def __init__(self, d_model: int):
+        super().__init__()
+        self.w_qs = nn.Linear(d_model, self.n_head * self.d_k)
+        self.w_ks = nn.Linear(d_model, self.n_head * self.d_k)
+        self.w_vs = nn.Linear(d_model, self.n_head * self.d_v)
+        self.fc = nn.Linear(self.n_head * self.d_v, d_model)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, t, _ = x.shape
+        nh, dk, dv = self.n_head, self.d_k, self.d_v
+        q = self.w_qs(x).view(b, t, nh, dk).transpose(1, 2)   # (B,H,T,dk)
+        k = self.w_ks(x).view(b, t, nh, dk).transpose(1, 2)
+        v = self.w_vs(x).view(b, t, nh, dv).transpose(1, 2)
+        attn = torch.softmax(
+            torch.matmul(q, k.transpose(2, 3)) / math.sqrt(dk), dim=-1)
+        out = torch.matmul(attn, v).transpose(1, 2).reshape(b, t, nh * dv)
+        return F.relu(self.fc(out))

@@ -1,8 +1,9 @@
 """Model registry: reference ``model_type`` strings -> constructors
 (counterpart of ``sed_tpu/models/registry.py``).
 
-Only the ``CnnSed`` entries without a ``MultiHead`` are ported; any other
-name raises ``KeyError`` listing the ported ones.
+The ``CnnSed`` entries (CNN, CNN + BiGRU, CNN + single-block
+Transformer) are ported; any other name raises ``KeyError`` listing the
+ported ones.
 """
 
 from __future__ import annotations
@@ -41,6 +42,16 @@ register('Cnn_14layers_Gru_FrameAtt', temporal='gru', head='att',
 # regression clone of Gru_FrameAtt whose reference leaves the pad out
 register('Cnn_9layers_Gru_Reg', temporal='gru', head='att',
          gru_hidden=256, pad_to_roundup=False)
+
+# CNN + single-block Transformer family; the 9-layer entries keep the
+# raw interpolated length (496 frames for a 5 s clip)
+register('Cnn_9layers_Transformer_FrameAvg', temporal='multihead',
+         head='avg')
+register('Cnn_9layers_Transformer_FrameAtt', temporal='multihead',
+         head='att')
+register('Cnn_14layers_Transformer_FrameAtt', temporal='multihead',
+         head='att', conv_channels=(64, 128, 256, 512, 1024, 2048),
+         pad_to_roundup=True)
 
 
 def get_model(model_type: str, cfg, classes_num: int = 25,

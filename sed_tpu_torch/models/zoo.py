@@ -1,10 +1,10 @@
-"""CNN [+ BiGRU] + {max, avg, att} head SED models (counterpart of
-``sed_tpu/models/zoo.py``).
+"""CNN [+ BiGRU | + MultiHead] + {max, avg, att} head SED models
+(counterpart of ``sed_tpu/models/zoo.py``).
 
 ``forward(wav) -> {'framewise_output' (B, T', C), 'clipwise_output'
 (B, C), 'embedding'}`` at 100 output frames per second, the reference's
 API.  Submodule names follow the flax parameter tree (``bn0``,
-``conv_block1``.., ``gru``, ``att_block``, ``fc``), so
+``conv_block1``.., ``gru``, ``multihead``, ``att_block``, ``fc``), so
 ``compat/from_flax.py`` maps a checkpoint leaf by leaf.
 """
 
@@ -21,8 +21,9 @@ from sed_tpu_torch.models.base import SedFeatureBase
 
 class CnnSed(SedFeatureBase):
     """Conv blocks (the last one unpooled) -> mean over mel bins ->
-    optional BiGRU -> attention head ('att') or per-frame sigmoid
-    classifier ('max' / 'avg' clipwise pooling)."""
+    optional BiGRU ('gru') or self-attention block ('multihead') ->
+    attention head ('att') or per-frame sigmoid classifier ('max' /
+    'avg' clipwise pooling)."""
 
     def __init__(self, cfg, classes_num: int = 25,
                  feature_type: str = 'logmel',
@@ -30,11 +31,7 @@ class CnnSed(SedFeatureBase):
                  temporal: str = 'none', head: str = 'att',
                  gru_hidden: int = 256, pad_to_roundup: bool = False):
         super().__init__(cfg, feature_type)
-        if temporal == 'multihead':
-            raise NotImplementedError(
-                "temporal='multihead' (MultiHead) is not ported yet: "
-                'ROADMAP queue 1 item 6')
-        if temporal not in ('none', 'gru'):
+        if temporal not in ('none', 'gru', 'multihead'):
             raise ValueError(f'unknown temporal module: {temporal}')
         if head not in ('att', 'avg', 'max'):
             raise ValueError(f'unknown head: {head}')
@@ -49,6 +46,8 @@ class CnnSed(SedFeatureBase):
         if temporal == 'gru':
             self.gru = blocks.BiGRU(in_ch, gru_hidden)
             in_ch = 2 * gru_hidden
+        elif temporal == 'multihead':
+            self.multihead = blocks.MultiHead(in_ch)
         if head == 'att':
             self.att_block = blocks.AttBlock(in_ch, classes_num,
                                              activation='sigmoid')
@@ -66,6 +65,8 @@ class CnnSed(SedFeatureBase):
 
         if self.temporal == 'gru':
             x = self.gru(x)
+        elif self.temporal == 'multihead':
+            x = self.multihead(x)
 
         if self.head == 'att':
             clipwise, _norm_att, cla = self.att_block(x)

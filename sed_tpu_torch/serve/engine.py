@@ -3,10 +3,11 @@
 
 All overlapped windows of a file, and the windows of many files, are
 batched into shared forwards on the engine's device; event decoding and
-XML stay on the host.  ``predict_clips`` keeps the framewise output on
-the device: it is coverage-normalised and reduced to per-track maxima
-there, and only the threshold masks of the active (clip, class) tracks
-come back to the host.
+XML stay on the host.  ``predict_clips`` and ``predict_clips_windowed``
+keep the framewise output on the device: it is overlap-added (windowed),
+coverage-normalised and reduced to per-track maxima there, and only the
+threshold masks of the active (clip, class) tracks come back to the
+host.
 
 Window schedule (reference ``predict.py:296-338``): windows advance 1 s
 with ``overlap`` else ``sample_duration`` s; window n >= 1 runs only
@@ -42,6 +43,21 @@ def disable_tf32() -> None:
 def tf32_flags() -> dict:
     return {'cuda.matmul.allow_tf32': torch.backends.cuda.matmul.allow_tf32,
             'cudnn.allow_tf32': torch.backends.cudnn.allow_tf32}
+
+
+def check_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device raises when CUDA is
+    absent or while TF32 is on (the port computes in fp32)."""
+    device = torch.device(device)
+    if device.type == 'cuda':
+        if not torch.cuda.is_available():
+            raise RuntimeError(f'device {device} requested but CUDA is not '
+                               'available')
+        if any(tf32_flags().values()):
+            raise RuntimeError(
+                f'TF32 is on ({tf32_flags()}); the port computes in fp32: '
+                'call sed_tpu_torch.serve.engine.disable_tf32()')
+    return device
 
 
 def window_starts(duration: float, sample_duration: int,
@@ -81,15 +97,7 @@ class SedInferenceEngine:
                  sed_params: config.SedParams = config.PREDICT_SED_PARAMS,
                  batch_size: int = 32,
                  labels: Sequence[str] = config.LABELS):
-        self.device = torch.device(device)
-        if self.device.type == 'cuda':
-            if not torch.cuda.is_available():
-                raise RuntimeError(f'device {self.device} requested but '
-                                   'CUDA is not available')
-            if any(tf32_flags().values()):
-                raise RuntimeError(
-                    f'TF32 is on ({tf32_flags()}); the engine computes in '
-                    'fp32: call sed_tpu_torch.serve.engine.disable_tf32()')
+        self.device = check_device(device)
         self.model = model.to(self.device).eval()
         self.cfg = cfg
         self.sample_duration = sample_duration
@@ -212,11 +220,10 @@ class SedInferenceEngine:
     def _decode_tracks_into(self, per_clip: List[List[dict]],
                             names: List[str], high_packed: np.ndarray,
                             low_packed: np.ndarray, act_n: np.ndarray,
-                            act_c: np.ndarray) -> None:
+                            act_c: np.ndarray, t_frames: int) -> None:
         """Decode packed threshold masks of active (clip, class) tracks
         into per-clip event dicts (native decoder when it is built)."""
         p = self._params
-        t_frames = self._out_frames
         if vad_native.native_available():
             all_pairs = vad_native.decode_packed_tracks(
                 high_packed, low_packed, t_frames,
@@ -241,6 +248,34 @@ class SedInferenceEngine:
                     'offset': fin / fps,
                     'event_label': self.labels[int(act_c[j])]})
 
+    def _events_on_device(self, framewise: torch.Tensor,
+                          names: List[str]) -> List[List[dict]]:
+        """Coverage-normalised (N, T, C) framewise output on the device ->
+        per-clip event lists.
+
+        One pull of the (N, C) track maxima picks the active tracks
+        (max > high threshold); their high/low masks (``>`` high, ``>=``
+        low, float32 thresholds) are made on the device and pulled in one
+        transfer, then decoded on the host.
+        """
+        n, t_frames, _ = framewise.shape
+        high = np.asarray(self._params['sed_high_threshold'], np.float64)
+        track_max = framewise.amax(dim=1).cpu().numpy()     # one pull
+        act_n, act_c = np.nonzero(track_max > high[None, :])
+        per_clip: List[List[dict]] = [[] for _ in range(n)]
+        if act_n.size:
+            idx_n = torch.from_numpy(act_n).to(self.device)
+            idx_c = torch.from_numpy(act_c).to(self.device)
+            tracks = framewise[idx_n, :, idx_c]             # (K, T)
+            masks = torch.cat([tracks > self._high_dev[idx_c][:, None],
+                               tracks >= self._low_dev[idx_c][:, None]])
+            masks = masks.cpu().numpy()                     # one pull
+            k = act_n.size
+            self._decode_tracks_into(
+                per_clip, names, np.packbits(masks[:k], axis=1),
+                np.packbits(masks[k:], axis=1), act_n, act_c, t_frames)
+        return per_clip
+
     @torch.inference_mode()
     def predict_clips(self, wavs: np.ndarray,
                       names: Optional[List[str]] = None
@@ -249,10 +284,7 @@ class SedInferenceEngine:
         per-clip (events, XML).
 
         One window per clip.  On the device: forward, coverage
-        normalisation, per-track max.  One pull of the (N, C) maxima picks
-        the active tracks (max > high threshold); their high/low masks
-        (``>`` high, ``>=`` low, float32 thresholds) are made on the
-        device and pulled in one transfer.
+        normalisation, per-track max; then ``_events_on_device``.
         """
         n = wavs.shape[0]
         if names is None:
@@ -269,31 +301,70 @@ class SedInferenceEngine:
         if wavs.ndim != 2 or wavs.shape[1] != self.window_samples:
             raise ValueError(f'predict_clips wants (N, {self.window_samples})'
                              f' clips, got {wavs.shape}')
-        high = np.asarray(self._params['sed_high_threshold'], np.float64)
 
         framewise = []
         for i0 in range(0, n, self.batch_size):
             fw, _ = self._forward(wavs[i0:i0 + self.batch_size])
             framewise.append(fw / self._coverage[None, :, None])
-        framewise = torch.cat(framewise)                    # (N, T, C)
-        track_max = framewise.amax(dim=1).cpu().numpy()     # one pull
-
-        act_n, act_c = np.nonzero(track_max > high[None, :])
-        per_clip: List[List[dict]] = [[] for _ in range(n)]
-        if act_n.size:
-            idx_n = torch.from_numpy(act_n).to(self.device)
-            idx_c = torch.from_numpy(act_c).to(self.device)
-            tracks = framewise[idx_n, :, idx_c]             # (K, T)
-            masks = torch.cat([tracks > self._high_dev[idx_c][:, None],
-                               tracks >= self._low_dev[idx_c][:, None]])
-            masks = masks.cpu().numpy()                     # one pull
-            k = act_n.size
-            self._decode_tracks_into(
-                per_clip, names, np.packbits(masks[:k], axis=1),
-                np.packbits(masks[k:], axis=1), act_n, act_c)
+        per_clip = self._events_on_device(torch.cat(framewise), names)
 
         xmls = [xml_writer.events_to_xml(
                     sorted(evs, key=lambda e: e['onset']), names[i],
                     fallback_span=(0, self.sample_duration))
                 for i, evs in enumerate(per_clip)]
         return per_clip, xmls
+
+    @torch.inference_mode()
+    def predict_clips_windowed(self, wavs: np.ndarray, names: List[str],
+                               duration: float, step: float
+                               ) -> List[List[dict]]:
+        """Uniform-length clips (N, samples), int16 or float32 -> per-clip
+        events, with overlapped windows merged on the device (the
+        ``inference_prob_overlap`` path; counterpart of ``sed_tpu``'s
+        ``predict_clips_windowed``).
+
+        Windows start at ``window_starts(duration, sample_duration, True,
+        step)``, sliced on the device at ``int(start * sr)`` samples.  Per
+        chunk of ``max(1, batch_size // W)`` clips: one upload, one
+        forward of all their W windows, overlap-add at ``int(100 * step)``
+        frame offsets into ``t_win + (W - 1) * interval`` frames, division
+        by ``merge.coverage_counts``; then ``_events_on_device``.
+        """
+        n = wavs.shape[0]
+        limit = self.dispatch_ahead_batches * self.batch_size
+        if n > limit:
+            out: List[List[dict]] = []
+            for i in range(0, n, limit):
+                out.extend(self.predict_clips_windowed(
+                    wavs[i:i + limit], names[i:i + limit], duration, step))
+            return out
+        starts = window_starts(duration, self.sample_duration, True, step)
+        sr = self.cfg.sample_rate
+        offs = [int(s * sr) for s in starts]
+        if wavs.ndim != 2 or offs[-1] + self.window_samples > wavs.shape[1]:
+            raise ValueError(f'{duration} s of {self.sample_duration} s '
+                             f'windows at {step} s steps do not fit clips '
+                             f'of shape {wavs.shape}')
+        w_count = len(offs)
+        interval = int(100 * step)
+        t_win = self._out_frames
+        total = t_win + (w_count - 1) * interval
+        coverage = torch.tensor(
+            post_merge.coverage_counts(total, self.sample_duration, step),
+            dtype=torch.float32, device=self.device)
+
+        nc = max(1, self.batch_size // w_count)
+        merged = []
+        for i0 in range(0, n, nc):
+            clips = wire_ops.dequant_wire(torch.from_numpy(
+                np.ascontiguousarray(wavs[i0:i0 + nc])).to(self.device))
+            wins = torch.stack([clips[:, o:o + self.window_samples]
+                                for o in offs], dim=1)   # (nc, W, samples)
+            fw = self.model(wins.reshape(-1, self.window_samples))[
+                'framewise_output']
+            fw = fw.view(clips.shape[0], w_count, t_win, -1)
+            acc = fw.new_zeros((clips.shape[0], total, fw.shape[-1]))
+            for w in range(w_count):
+                acc[:, w * interval:w * interval + t_win] += fw[:, w]
+            merged.append(acc / coverage[None, :, None])
+        return self._events_on_device(torch.cat(merged), names)

@@ -1,5 +1,6 @@
 """sed_tpu_torch on the card: the CUDA log-mel kernel against its plain
-PyTorch version, and the CUDA engine against the CPU engine.
+PyTorch version, and the CUDA engine against the CPU engine (the GRU and
+Transformer models, one window per clip and windowed merging).
 
 These tests need an NVIDIA GPU with nvcc (the kernel has no CPU mode)
 and skip elsewhere.  They import no JAX or flax, so they run on a card
@@ -169,3 +170,85 @@ def test_cuda_engine_refuses_tf32(device):
                                       device)
     finally:
         engine.disable_tf32()
+
+
+def test_cuda_transformer_matches_cpu(device):
+    """Cnn_9layers_Transformer_FrameAtt at full width on
+    ``transformer_variables``: 8 int16 bench-corpus clips through the
+    CUDA engine give the CPU engine's events and XML, framewise within
+    1e-4, and launch the kernel."""
+    from sed_tpu_torch.compat.bench_weights import transformer_variables
+    from sed_tpu_torch.compat.from_flax import load_variables
+    from sed_tpu_torch.models.registry import get_model
+    sys.path.insert(0, os.path.join(REPO, 'tools'))
+    from bench_corpus import make_clips
+    cfg = config.AUDIO_16K
+    variables = transformer_variables(seed=0)
+    engines = []
+    for dev in ('cpu', device):
+        model = get_model('Cnn_9layers_Transformer_FrameAtt', cfg)
+        engines.append(engine.SedInferenceEngine(
+            load_variables(model, variables), cfg, dev, batch_size=8))
+    cpu, gpu = engines
+    pcm = (np.clip(make_clips(8, cfg.sample_rate, seconds=5, seed=0), -1, 1)
+           * 32767).astype(np.int16)
+    before = fused_logmel.launches
+    got = gpu.predict_clips(pcm)
+    assert fused_logmel.launches > before
+    assert sum(map(len, got[0])) > 0
+    assert got == cpu.predict_clips(pcm)
+    fw_gpu, cw_gpu = gpu.infer_framewise(pcm)
+    fw_cpu, cw_cpu = cpu.infer_framewise(pcm)
+    assert fw_gpu.shape == (8, 496, 25)
+    np.testing.assert_allclose(fw_gpu, fw_cpu, atol=1e-4)
+    np.testing.assert_allclose(cw_gpu, cw_cpu, atol=1e-4)
+
+
+@pytest.mark.parametrize('step,window', [(0.5, 6), (1, 5)])
+def test_cuda_windowed_matches_cpu(device, step, window):
+    """``predict_clips_windowed`` on 4 bench-corpus clips of 10 s (int16):
+    the CUDA engine gives the CPU engine's events and launches the
+    kernel."""
+    sys.path.insert(0, os.path.join(REPO, 'tools'))
+    from bench_corpus import make_clips
+    cfg = config.AUDIO_16K
+    pcm = (np.clip(make_clips(4, cfg.sample_rate, seconds=10, seed=4), -1, 1)
+           * 32767).astype(np.int16)
+    names = [f'c{i}.wav' for i in range(4)]
+    kw = dict(sample_duration=window, overlap=True, overlap_value=step,
+              batch_size=18)
+    cpu = engine.SedInferenceEngine(load_npz(CKPT, MODEL, cfg, 'cpu'), cfg,
+                                    'cpu', **kw)
+    gpu = engine.SedInferenceEngine(load_npz(CKPT, MODEL, cfg, device), cfg,
+                                    device, **kw)
+    before = fused_logmel.launches
+    got = gpu.predict_clips_windowed(pcm, names, duration=10.0, step=step)
+    assert fused_logmel.launches > before
+    assert sum(map(len, got)) > 0
+    assert got == cpu.predict_clips_windowed(pcm, names, duration=10.0,
+                                             step=step)
+
+
+def test_cuda_evaluator_refuses_tf32_and_matches_cpu(device):
+    """The Evaluator on the card refuses TF32; with it off, its forward
+    over 10 s clips (a ragged last batch) gives the CPU's outputs."""
+    from sed_tpu_torch.eval.evaluator import Evaluator
+    cfg = config.AUDIO_16K
+    model = load_npz(CKPT, MODEL, cfg, 'cpu')
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match='TF32'):
+            Evaluator(model, device)
+    finally:
+        engine.disable_tf32()
+    wav = np.random.RandomState(3).uniform(-0.3, 0.3, (3, 160000)) \
+        .astype(np.float32)
+    loader = [{'audio_name': np.array(['a', 'b']), 'waveform': wav[:2]},
+              {'audio_name': np.array(['c']), 'waveform': wav[2:]}]
+    want = Evaluator(model, 'cpu').forward(loader)
+    before = fused_logmel.launches
+    got = Evaluator(load_npz(CKPT, MODEL, cfg, 'cpu'), device).forward(loader)
+    assert fused_logmel.launches == before + 2
+    assert got['framewise_output'].shape == (3, 1000, 25)
+    np.testing.assert_allclose(got['framewise_output'],
+                               want['framewise_output'], atol=1e-4)

@@ -193,7 +193,7 @@ def test_full_width_bench_checkpoint_matches_jax():
                                    atol=ATOL)
 
 
-@pytest.mark.parametrize('model_type', ['Cnn_9layers_Transformer_FrameAtt',
+@pytest.mark.parametrize('model_type', ['Cnn_9layers_Conformer_FrameAvg',
                                         'Cnn_9layers_Conformer_FrameAtt',
                                         'VGGish_FrameAtt', 'no_such_model'])
 def test_unported_model_type_raises_with_ported_list(model_type):
@@ -203,16 +203,24 @@ def test_unported_model_type_raises_with_ported_list(model_type):
 
 
 def test_registry_lists_only_cnn_sed_without_multihead():
+    """The ported registry: the CnnSed entries, the single-block
+    Transformer ones (MultiHead) included."""
     assert sorted(MODEL_REGISTRY) == sorted([
         'Cnn_9layers_FrameMax', 'Cnn_9layers_FrameAvg',
         'Cnn_9layers_FrameAtt', 'Cnn_9layers_Gru_FrameAvg',
         'Cnn_9layers_Gru_FrameAtt', 'Cnn_14layers_Gru_FrameAtt',
-        'Cnn_9layers_Gru_Reg'])
+        'Cnn_9layers_Gru_Reg', 'Cnn_9layers_Transformer_FrameAvg',
+        'Cnn_9layers_Transformer_FrameAtt',
+        'Cnn_14layers_Transformer_FrameAtt'])
 
 
 def test_multihead_and_train_mode_raise():
-    with pytest.raises(NotImplementedError, match='MultiHead'):
-        CnnSed(AUDIO_16K, temporal='multihead')
+    """MultiHead is ported now; an unknown temporal module and a
+    training-mode forward still raise."""
+    assert isinstance(CnnSed(AUDIO_16K, temporal='multihead').multihead,
+                      blocks.MultiHead)
+    with pytest.raises(ValueError, match='temporal'):
+        CnnSed(AUDIO_16K, temporal='conformer')
     model = get_model('Cnn_9layers_FrameAtt', AUDIO_8K,
                       conv_channels=(4, 4, 4, 4)).train()
     with pytest.raises(NotImplementedError, match='eval'):
