@@ -22,7 +22,8 @@ checks it against the same engine on the CPU.  Phases:
    identical to the CPU engine;
 6. times on the GPU: kernel against plain log-mel at 8, 16 and 32 kHz,
    batch 1 and 32 of 5 s clips (CUDA events, median of 20, in turns),
-   with the kernel's achieved TFLOP/s; ``predict_clips`` clips/s over 512
+   with the kernel's achieved rate and, at 32 x 80000, its bound (the
+   operations an FFT needs, or the bytes); ``predict_clips`` clips/s over 512
    clips at batch 32; a profiler breakdown of one batch;
 7. Cnn_9layers_Transformer_FrameAtt at full width on
    ``compat.bench_weights.transformer_variables``: ``predict_clips`` on
@@ -38,11 +39,28 @@ checks it against the same engine on the CPU.  Phases:
    checked and timed;
 9. the ``Evaluator`` forward (``inference_prob``'s) on the 32 clips of
    10 s from an in-memory batch list with a ragged last batch, GPU
-   against CPU: framewise within 1e-4.
+   against CPU: framewise within 1e-4;
+10. the uint8 wires on the card: the 64 bench clips plus a full-scale
+    square wave and digital silence, encoded as q2-q6, mu-law and
+    adpcm4/3/2 by the port's numpy encoders, decoded on the GPU by
+    ``ops.wire.dequant_wire`` bit-exact to the numpy decoders;
+    ``predict_clips`` on the 64 clips as adpcm4 and q6, events and XML
+    identical to the CPU engine; decode device ms per batch of 32 (CUDA
+    events), adpcm4 ``predict_clips`` clips/s over 512 clips, a
+    profiler breakdown of one adpcm4 batch and of one decode alone;
+11. ``predict_clips_stream`` on 512 int16 clips in chunks of 32:
+    identical to ``predict_clips``, clips/s; then on 512 wav files of 5 s
+    (16 and 44.1 kHz, resampled on the host) read chunk by chunk in the
+    caller's generator, against reading them all and ``predict_clips``
+    (identical results, clips/s of both and of reading alone);
+12. ``StreamingSed`` on a 30 s bench-corpus stream fed in random chunk
+    sizes on the GPU: the events of all feeds and the flush equal the
+    CPU engine's ``predict_waveform`` events.
 
-Phases 4, 7, 8 and 9 drive the main paths: each sets the kernel's launch
-count to 0 just before and reads it just after, and fails if the kernel
-was not launched.
+Phases 4, 7, 8, 9, 10, 11 and 12 drive the main paths: each sets the
+kernel's launch count to 0 just before and reads it just after, and
+fails if the kernel was not launched.  The script imports nothing of JAX
+and nothing of the JAX package ``sed_tpu``, and checks so at the end.
 
 Any failure raises (exit code != 0).  Without CUDA, or outside the
 repository, it exits non-zero before printing a result.  The last line
@@ -94,7 +112,7 @@ def kernel_inputs(cfg, seed: int):
     +-1.0 clip, 5 s plus a few hops so that no 64-frame tile divides the
     frame count."""
     import numpy as np
-    from bench_corpus import make_clips
+    from sed_tpu_torch.bench_corpus import make_clips
     sr = cfg.sample_rate
     clips = make_clips(4, sr, seconds=5, seed=seed)
     extra = 3 * cfg.hop_size
@@ -107,11 +125,34 @@ def kernel_inputs(cfg, seed: int):
                            full[None]])
 
 
-def useful_gflop(cfg, rows: int) -> float:
-    """DFT and mel products of the function, per its shapes: rows frames
-    @ (n_fft, 2 * bins), then @ (bins, mel_bins)."""
+def needed_gflop(cfg, rows: int) -> float:
+    """Operations log-mel needs for ``rows`` frames, counted as an FFT
+    does them: the window product (n), a real FFT of n points (2.5 n
+    log2 n), the power spectrum (3 a bin), a multiply-add for each
+    nonzero tap of the mel filters, and the dB scaling (4 a mel bin).
+    The kernel does ~40x more: its DFT is a dense product."""
+    import numpy as np
+    from sed_tpu_torch.dsp.filters import frontend_arrays
     n, bins = cfg.window_size, cfg.window_size // 2 + 1
-    return rows * (2 * n * 2 * bins + 2 * bins * cfg.mel_bins) / 1e9
+    taps = np.count_nonzero(frontend_arrays(cfg)[1])
+    return rows * (n + 2.5 * n * np.log2(n) + 3 * bins + 2 * taps
+                   + 4 * cfg.mel_bins) / 1e9
+
+
+def bound_ms(cfg, wav_shape, frames: int) -> tuple:
+    """The least time an H100 SXM could take for log-mel on a (B,
+    samples) float32 input: the larger of the operations it needs
+    (``needed_gflop``, fp32, at the 67 TFLOP/s of the fp32 units) and its
+    bytes (waveform, window and mel matrix read once, log-mel written
+    once) over 3.35 TB/s, with which of the two bounds it."""
+    batch, samples = wav_shape
+    bins = cfg.window_size // 2 + 1
+    nbytes = 4 * (batch * samples + cfg.window_size + bins * cfg.mel_bins
+                  + batch * frames * cfg.mel_bins)
+    ops_ms = needed_gflop(cfg, batch * frames) / 67e12 * 1e12
+    bytes_ms = nbytes / 3.35e12 * 1e3
+    return max(ops_ms, bytes_ms), ('operations' if ops_ms >= bytes_ms
+                                   else 'bytes'), ops_ms, bytes_ms
 
 
 def time_kernel(fused_logmel, logmel_plain, wav, cfg):
@@ -127,18 +168,61 @@ def time_kernel(fused_logmel, logmel_plain, wav, cfg):
     return times, (got - want).abs().max().item(), got.shape[1]
 
 
-def clips_per_s(engine, bench, runs: int = 3):
-    """``predict_clips`` clips/s over ``bench`` after a warm-up, host
-    clock around each run (which ends in the host's decode)."""
+def clips_per_s(engine, bench, runs: int = 3, stream_chunk: int = 0):
+    """``predict_clips`` (or, with ``stream_chunk``, ``predict_clips_stream``
+    over chunks of that many clips) clips/s over ``bench`` after a
+    warm-up, host clock around each run (which ends in the host's
+    decode)."""
     import torch
-    engine.predict_clips(bench[:64])
+
+    def run(wavs):
+        if stream_chunk:
+            return engine.predict_clips_stream(
+                wavs[i:i + stream_chunk]
+                for i in range(0, len(wavs), stream_chunk))
+        return engine.predict_clips(wavs)
+
+    run(bench[:64])
     rates = []
     for _ in range(runs):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        ev, _ = engine.predict_clips(bench)
+        ev, _ = run(bench)
         rates.append(len(bench) / (time.perf_counter() - t0))
     return rates, sum(map(len, ev))
+
+
+def file_stream(engine, paths, chunk: int = 32, runs: int = 3) -> dict:
+    """Clips/s of serving wav files, read (and resampled to the engine's
+    rate) by ``audio_io.load_audio`` on the host: reading alone; reading
+    them all, then ``predict_clips`` ('plain'); ``predict_clips_stream``
+    over a generator that reads each chunk's files ('stream').  Host
+    clock, in turns; the stream must equal plain."""
+    import numpy as np
+    import torch
+    from sed_tpu_torch.data import audio_io
+    sr = engine.cfg.sample_rate
+
+    def chunks():
+        for i in range(0, len(paths), chunk):
+            yield audio_io.stack_rows(audio_io.load_audio(p, sr)[0]
+                                      for p in paths[i:i + chunk])
+
+    modes = {'read': lambda: np.concatenate(list(chunks())),
+             'plain': lambda: engine.predict_clips(
+                 np.concatenate(list(chunks()))),
+             'stream': lambda: engine.predict_clips_stream(chunks())}
+    assert modes['stream']() == modes['plain'](), \
+        'predict_clips_stream over read files differs from predict_clips'
+    rates = {name: [] for name in modes}
+    for r in range(runs):
+        for name in (modes if r % 2 else reversed(list(modes))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            modes[name]()
+            rates[name].append(round(len(paths) / (time.perf_counter() - t0),
+                                     1))
+    return rates
 
 
 def profile_batch(engine, pcm, tag: str) -> None:
@@ -165,21 +249,43 @@ def profile_batch(engine, pcm, tag: str) -> None:
               f'x{e.count:<4d} {e.key[:90]}')
 
 
+def decode_profile(dequant_wire, batch, tag: str) -> None:
+    """Device time of one wire decode of ``batch`` under the profiler:
+    the sum of its kernels, their launches and the wall around it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    dequant_wire(batch, 80000)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dequant_wire(batch, 80000)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in rows)
+    print(f'[{tag}] profile of one decode of {tuple(batch.shape)} uint8: '
+          f'wall {wall_us:.0f} us, device kernels {busy_us:.0f} us in '
+          f'{sum(e.count for e in rows)} launches')
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: torch.cuda.is_available() is False; '
                          'this script needs an NVIDIA GPU')
-    sys.path[:0] = [REPO, os.path.join(REPO, 'tools')]
+    sys.path[:0] = [REPO]
     import numpy as np
-    from sed_tpu_torch import _build
-    from sed_tpu_torch._host import audio_io, config
+    from sed_tpu_torch import _build, config
+    from sed_tpu_torch.bench_corpus import make_clips
     from sed_tpu_torch.compat.from_flax import load_npz
+    from sed_tpu_torch.data import audio_io
     from sed_tpu_torch.dsp.frontend import logmel_plain
     from sed_tpu_torch.ops.logmel_kernel import fused_logmel
     from sed_tpu_torch.serve.engine import (SedInferenceEngine, disable_tf32,
                                             tf32_flags, window_starts)
-    from bench_corpus import make_clips
 
     # -- 1. card and numerics -------------------------------------------
     card = card_line()
@@ -240,6 +346,7 @@ def main() -> None:
     fused_logmel.launches = 0
     ev_gpu, xml_gpu = gpu.predict_clips(pcm)
     launches = fused_logmel.launches
+    ev_pcm = ev_gpu
     print(f'[4] predict_clips on {dev}: {len(pcm)} clips, '
           f'{sum(map(len, ev_gpu))} events, log-mel kernel launches '
           f'{launches}')
@@ -276,17 +383,23 @@ def main() -> None:
                                              rate)
             max_err = max(max_err, err)
             best = min(times['kernel'])
-            gflop = useful_gflop(rate, batch * frames)
+            gflop = needed_gflop(rate, batch * frames)
             tensor = 2 * batch * frames * rate.window_size ** 2
             print(f'[6] log-mel {rate.name} {batch} x {wav.shape[1]} on '
                   f'{card}: kernel {times["kernel"]} ms, plain '
                   f'{times["plain"]} ms (median of 20 each, in turns); '
-                  f'kernel {gflop / best:.1f} TFLOP/s useful '
-                  f'({gflop:.3f} GFLOP), fp64 DFT '
+                  f'kernel {gflop / best:.3f} TFLOP/s of needed work '
+                  f'({gflop:.4f} GFLOP as an FFT), dense fp64 DFT '
                   f'{tensor / best / 1e9:.1f} TFLOP/s on the tensor cores; '
                   f'max |kernel - plain| {err!r} dB')
             if rate is cfg and batch == 32:     # the main path's batch
                 kernel_ms, plain_ms = best, min(times['plain'])
+                bound = bound_ms(rate, tuple(wav.shape), frames)
+                print(f'[6] log-mel bound at {batch} x {wav.shape[1]}: '
+                      f'{bound[0]:.5f} ms by {bound[1]} (operations '
+                      f'{bound[2]:.5f} ms at 67 TFLOP/s, bytes '
+                      f'{bound[3]:.5f} ms at 3.35 TB/s); kernel at '
+                      f'{bound[0] / best:.4f} of it')
 
     bench = np.concatenate([pcm] * 8)                      # 512 clips
     rates, n_events = clips_per_s(gpu, bench)
@@ -331,7 +444,8 @@ def main() -> None:
     profile_batch(tgpu, pcm[:32], '7')
 
     # -- 8. on-device windowed merging, GPU vs CPU ---------------------------
-    from sed_tpu_torch._host import events as post_events, segment_metrics
+    from sed_tpu_torch.eval import segment_metrics
+    from sed_tpu_torch.post import events as post_events
     from sed_tpu_torch.cli.main_strong import PARAM_COMBINATIONS
     clips10, truth = make_clips(32, cfg.sample_rate, seconds=10, seed=21,
                                 return_events=True)
@@ -410,18 +524,136 @@ def main() -> None:
           f'cpu| = {e_err!r}, clipwise {c_err!r}')
     assert e_err <= FRAMEWISE_ATOL and c_err <= FRAMEWISE_ATOL
 
-    blocked = [m for m in sys.modules
-               if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',
-                                      'orbax')]
-    assert not blocked, f'JAX modules were imported: {blocked[:5]}'
+    # -- 10. the uint8 wires on the card ---------------------------------
+    from sed_tpu_torch.ops import wire as wire_ops
+    sq = np.where((np.arange(clips.shape[1]) // 37) % 2 == 0, 1.0, -1.0)
+    signals = np.concatenate([clips, sq[None], np.zeros_like(clips[:1])]
+                             ).astype(np.float32)
+    codecs = {
+        **{f'q{n}': (lambda x, n=n: audio_io.qn_encode(x, n),
+                     lambda b, n=n: audio_io.qn_decode_np(b, 80000, n))
+           for n in audio_io.QN_BITS},
+        'mulaw': (audio_io.mulaw_encode, audio_io.mulaw_decode),
+        'adpcm4': (audio_io.adpcm_encode_np,
+                   lambda b: audio_io.adpcm_decode_np(b, 80000)),
+        **{f'adpcm{n}': (lambda x, n=n: audio_io.adpcm_n_encode_np(x, n),
+                         lambda b, n=n: audio_io.adpcm_n_decode_np(
+                             b, 80000, n))
+           for n in (3, 2)}}
+    wires = {}
+    for name, (encode, decode_np) in codecs.items():
+        buf = encode(signals)
+        wires[name] = buf
+        got = wire_ops.dequant_wire(torch.from_numpy(buf).to(dev), 80000)
+        got = got.cpu().numpy()
+        assert np.array_equal(got.view(np.int32),
+                              decode_np(buf).view(np.int32)), \
+            f'{name}: GPU decode differs from the numpy decoder'
+        batch = torch.from_numpy(buf[:32]).to(dev)
+        ms = cuda_ms(lambda: wire_ops.dequant_wire(batch, 80000))
+        print(f'[10] {name}: {buf.shape[1]} bytes a clip, GPU decode of '
+              f'{len(buf)} rows bit-exact to the numpy decoder; decode of '
+              f'32 clips on {card}: {ms:.4f} ms (median of 20)')
+    v_launches = 0
+    for name in ('adpcm4', 'q6'):
+        buf = wires[name][:len(clips)]
+        fused_logmel.launches = 0
+        ev_gpu, xml_gpu = gpu.predict_clips(buf)
+        launched = fused_logmel.launches
+        assert launched > 0, f'the {name} wire did not launch the kernel'
+        v_launches += launched
+        ev_cpu, xml_cpu = cpu.predict_clips(buf)
+        assert ev_gpu == ev_cpu, f'{name} events differ between GPU and CPU'
+        assert xml_gpu == xml_cpu, f'{name} XML differs between GPU and CPU'
+        print(f'[10] predict_clips of {len(buf)} clips as {name} on {dev}: '
+              f'{sum(map(len, ev_gpu))} events (int16: '
+              f'{sum(map(len, ev_pcm))}), kernel launches {launched}; '
+              f'events and XML identical to the CPU engine')
+    adpcm_bench = np.concatenate([wires['adpcm4'][:len(clips)]] * 8)
+    rates, n_events = clips_per_s(gpu, adpcm_bench)
+    print(f'[10] predict_clips 512 adpcm4 clips, batch 32, on {card}: '
+          f'{[round(r, 1) for r in rates]} clips/s (3 runs), {n_events} '
+          f'events')
+    profile_batch(gpu, adpcm_bench[:32], '10')
+    decode_profile(wire_ops.dequant_wire,
+                   torch.from_numpy(adpcm_bench[:32]).to(dev), '10')
 
+    # -- 11. predict_clips_stream ------------------------------------------
+    fused_logmel.launches = 0
+    stream_out = gpu.predict_clips_stream(
+        bench[i:i + 32] for i in range(0, len(bench), 32))
+    s_launches = fused_logmel.launches
+    assert s_launches > 0, 'predict_clips_stream did not launch the kernel'
+    assert stream_out == gpu.predict_clips(bench), \
+        'predict_clips_stream differs from predict_clips'
+    rates, n_events = clips_per_s(gpu, bench, stream_chunk=32)
+    print(f'[11] predict_clips_stream 512 int16 clips in chunks of 32 on '
+          f'{card}: identical to predict_clips, kernel launches '
+          f'{s_launches}; {[round(r, 1) for r in rates]} clips/s (3 runs), '
+          f'{n_events} events')
+    # host work in the caller's iterator: 512 wav reads, 64 files x 8
+    with tempfile.TemporaryDirectory() as tmp:
+        for file_sr in (cfg.sample_rate, 44100):
+            paths = []
+            for i, clip in enumerate(make_clips(64, file_sr, seconds=5,
+                                                seed=41)):
+                paths.append(os.path.join(tmp, f'{file_sr}_{i}.wav'))
+                audio_io.save_wav(paths[-1], clip, file_sr)
+            rates = file_stream(gpu, paths * 8)
+            print(f'[11] 512 wav files of 5 s at {file_sr} Hz read by '
+                  f'load_audio (to {cfg.sample_rate} Hz) on {card}: '
+                  f'stream equal to read-all + predict_clips; clips/s '
+                  f'(3 runs each, in turns): read alone {rates["read"]}, '
+                  f'read-all + predict_clips {rates["plain"]}, '
+                  f'predict_clips_stream {rates["stream"]}')
+
+    # -- 12. StreamingSed ----------------------------------------------------
+    from sed_tpu_torch.serve.streaming import StreamingSed
+    stream = make_clips(6, cfg.sample_rate, seconds=5, seed=31).reshape(-1)
+    rng = np.random.RandomState(12)
+    sess = StreamingSed(gpu, 'stream')
+    fused_logmel.launches = 0
+    t0 = time.perf_counter()
+    pos, feeds, early = 0, 0, []
+    while pos < len(stream):
+        size = int(rng.uniform(0.05, 3.0) * cfg.sample_rate)
+        early.extend(sess.feed(stream[pos:pos + size]))
+        pos += size
+        feeds += 1
+    got = early + sess.flush()
+    wall = time.perf_counter() - t0
+    r_launches = fused_logmel.launches
+    assert r_launches > 0, 'StreamingSed did not launch the kernel'
+
+    def keys(evs):
+        return sorted((e['event_label'], round(e['onset'], 4),
+                       round(e['offset'], 4)) for e in evs)
+
+    want = keys(cpu.predict_waveform(stream, 'stream'))
+    assert want and keys(got) == want, \
+        'StreamingSed on the GPU differs from the CPU predict_waveform'
+    print(f'[12] StreamingSed on {dev}: 30 s in {feeds} random chunks, '
+          f'{len(got)} events ({len(early)} before the flush) equal to the '
+          f'CPU engine\'s predict_waveform; kernel launches {r_launches}; '
+          f'{wall:.3f} s wall')
+
+    blocked = [m for m in sys.modules
+               if m.split('.')[0] in ('sed_tpu', 'jax', 'jaxlib', 'flax',
+                                      'optax', 'orbax')]
+    assert not blocked, f'JAX or sed_tpu modules were imported: {blocked[:5]}'
+
+    bound = bound_ms(cfg, (32, 80000), 501)
     print(json.dumps({'kernels': [{
         'name': 'fused_logmel', 'route': 'cuda',
         'source': 'sed_tpu_torch/csrc/logmel.cu',
         'replaces': 'sed_tpu/ops/logmel_kernel.py:48',
-        'launches': launches + t_launches + w_launches + e_launches,
+        'launches': (launches + t_launches + w_launches + e_launches
+                     + v_launches + s_launches + r_launches),
         'max_abs_err': max_err,
-        'ms': kernel_ms, 'plain_ms': plain_ms}]}))
+        'ms': kernel_ms, 'plain_ms': plain_ms,
+        'bound_ms': bound[0], 'bound_by': bound[1],
+        # no single PyTorch call computes log-mel
+        'library_ms': None}]}))
     print(card_line())
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

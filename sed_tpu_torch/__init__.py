@@ -4,20 +4,29 @@ The JAX package ``sed_tpu`` is the reference; this package computes the
 same functions with PyTorch on an NVIDIA GPU (or on the CPU through the
 plain PyTorch versions of its kernels).  Its layout mirrors ``sed_tpu``:
 
-dsp      log-mel frontend in plain PyTorch (the kernel's plain version)
-ops      the hand-written CUDA log-mel kernel's wrapper; wire dequant
-models   nn.Module model zoo (CnnSed family: CNN, + BiGRU, + MultiHead)
-compat   flax variables / reference .pth -> PyTorch state_dict bridge;
-         seeded Transformer weights on the bench checkpoint
-serve    wav -> events -> XML serving engine, on-device windowed merging
-eval     Evaluator: forward over a split, AP and segment metrics
-cli      ``predict``, ``main_strong`` (inference modes) and
-         ``optimize_thresholds`` entry points
+config      audio configs, labels, event-decoding thresholds
+dsp         log-mel frontend in plain PyTorch (the kernel's plain version)
+            and the DFT / mel filter design
+ops         the hand-written CUDA log-mel kernel's wrapper; the device
+            decode of every fixed-width wire (int16, mu-law, qN, ADPCM)
+models      nn.Module model zoo (CnnSed family: CNN, + BiGRU, + MultiHead)
+compat      flax variables / reference .pth -> PyTorch state_dict bridge;
+            seeded Transformer weights on the bench checkpoint
+serve       wav -> events -> XML serving engine (batched, pipelined
+            stream, on-device windowed merging) and ``StreamingSed``
+post        event decoding, overlap-add merging, XML
+native      the g++-built host event decoder (numpy fallback)
+data        audio I/O and wire constants; the HDF5 evaluation loader
+eval        Evaluator: forward over a split, AP and segment metrics
+thresholds  the numpy threshold optimizer
+utils       .npz checkpoints, workspace paths
+cli         ``predict``, ``main_strong`` (inference modes) and
+            ``optimize_thresholds`` entry points
 
-It imports no JAX.  The numpy-only host modules of ``sed_tpu`` (config,
-post-processing, audio I/O, the native event decoder, .npz checkpoints,
-the .pth name map, segment metrics) are shared through
-``sed_tpu_torch._host`` rather than forked.
+It imports nothing of JAX and nothing of ``sed_tpu``: the numpy-only
+host modules it needs are its own copies, laid out as in ``sed_tpu``.
+Entry points run on the card (``cuda``) unless the caller asks for the
+CPU.
 """
 
 __version__ = "0.1.0"

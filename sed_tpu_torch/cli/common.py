@@ -1,22 +1,104 @@
-"""Shared CLI plumbing of the port: model loading (counterpart of
-``sed_tpu/cli/common.py:build_model_and_variables``).
-
-Flags, workspace paths and threshold pickles are ``sed_tpu``'s own
-(``sed_tpu_torch._host.cli_common``).
+"""Shared CLI plumbing of the port: quality flags, workspace paths and
+threshold pickles (a copy of ``sed_tpu/cli/common.py``'s) and model
+loading (counterpart of its JAX-only ``build_model_and_variables``).
 """
 
 from __future__ import annotations
 
+import argparse
 import os
+from typing import Tuple
+
+from sed_tpu_torch.config import AudioConfig, SedParams, get_audio_config
+from sed_tpu_torch.utils.paths import Workspace
+
+
+def add_common_args(parser: argparse.ArgumentParser,
+                    require_dataset: bool = True):
+    parser.add_argument('--dataset_dir', type=str,
+                        required=require_dataset,
+                        help='Directory of the dataset.')
+    parser.add_argument('--workspace', type=str, required=True,
+                        help='Directory of your workspace.')
+    parser.add_argument('--filename', type=str, default='main_strong')
+    parser.add_argument('--holdout_fold', type=str, default='1',
+                        choices=['1'])
+    parser.add_argument('--model_type', type=str,
+                        default='Cnn_9layers_Gru_FrameAtt')
+    parser.add_argument('--loss_type', type=str, default='clip_bce')
+    # reference quirk preserved: the choice list (README.md's
+    # augmentation list) spells the standalone option 'spec_augment'
+    # with an underscore, but dispatch tests `'specaugment' in
+    # augmentation` (``main_strong.py:278``) — so 'spec_augment' trains
+    # with NO augmentation in the reference and here alike; use a
+    # 'specaugment_*' combo for SpecAugment
+    parser.add_argument('--augmentation', type=str, default='none',
+                        choices=['none', 'spec_augment', 'timeshift',
+                                 'mixup', 'timeshift_mixup',
+                                 'specaugment_timeshift_mixup',
+                                 'specaugment_mixup',
+                                 'specaugment_timeshift'])
+    parser.add_argument('--batch_size', type=int, default=32)
+    parser.add_argument('--feature_type', type=str, default='logmel')
+    parser.add_argument('--audio_8k', action='store_true', default=False)
+    parser.add_argument('--audio_16k', action='store_true', default=False)
+    parser.add_argument('--mini_data', action='store_true', default=False)
+    parser.add_argument('--sed_thresholds', action='store_true',
+                        default=False)
+    # accepted for reference-CLI compatibility; the device is --device
+    parser.add_argument('--cuda', action='store_true', default=False)
+
+
+def resolve(args) -> Tuple[AudioConfig, Workspace]:
+    cfg = get_audio_config(audio_8k=args.audio_8k, audio_16k=args.audio_16k)
+    ws = Workspace(root=args.workspace, filename=args.filename,
+                   holdout_fold=args.holdout_fold,
+                   model_type=args.model_type, loss_type=args.loss_type,
+                   augmentation=args.augmentation,
+                   batch_size=args.batch_size)
+    return cfg, ws
+
+
+def hdf5_path(args, cfg: AudioConfig, data_type: str) -> str:
+    prefix = 'minidata_' if args.mini_data else ''
+    return os.path.join(
+        args.workspace, 'hdf5s',
+        f'{prefix}{data_type}_{args.feature_type}_{cfg.name}.h5')
+
+
+def reference_csv_paths(args) -> dict:
+    """Ground-truth csv layout (``pytorch/main_strong.py:141-146``)."""
+    return {
+        'valid': os.path.join(
+            args.dataset_dir, 'metadata', 'strong',
+            'groundtruth_strong_label_strong_validation_set.csv'),
+        'test': os.path.join(
+            args.dataset_dir, 'metadata',
+            'groundtruth_strong_label_testing_set.csv'),
+    }
+
+
+def load_sed_params(args, cfg: AudioConfig, ws: Workspace,
+                    default):
+    """Optimized thresholds pickle or defaults
+    (``pytorch/predict.py:244-257``)."""
+    if args.sed_thresholds:
+        import pickle
+        with open(ws.sed_thresholds_path(args.feature_type, cfg.name),
+                  'rb') as f:
+            return SedParams.from_dict(pickle.load(f))
+    return default
 
 
 def add_model_args(parser) -> None:
-    """``--checkpoint`` and the required ``--device``."""
+    """``--checkpoint`` and ``--device`` (default ``cuda``: the entry
+    points run on the card unless asked for the CPU)."""
     parser.add_argument('--checkpoint', type=str, default=None,
                         help='sed_tpu .npz or reference .pth checkpoint '
                              '(default: the workspace .pth)')
-    parser.add_argument('--device', type=str, required=True,
-                        help="torch device to run on, e.g. 'cuda' or 'cpu'")
+    parser.add_argument('--device', type=str, default='cuda',
+                        help="torch device to run on (default 'cuda'; "
+                             "'cpu' asks for the CPU)")
 
 
 def checkpoint_path(args, cfg, ws) -> str:
@@ -46,12 +128,13 @@ def build_model(args, cfg, ws):
     ``args.device``, in eval mode.  Turns TF32 off first: the port's CUDA
     engine and evaluator refuse it."""
     from sed_tpu_torch.compat.from_flax import load_checkpoint
-    from sed_tpu_torch.serve.engine import disable_tf32
+    from sed_tpu_torch.serve.engine import check_device, disable_tf32
     if args.feature_type != 'logmel':
         raise SystemExit(f'--feature_type {args.feature_type}: only logmel '
                          'is ported')
     path = checkpoint_path(args, cfg, ws)
     disable_tf32()
+    check_device(args.device)
     try:
         return load_checkpoint(path, args.model_type, cfg, args.device)
     except ValueError as e:

@@ -15,7 +15,7 @@ Modes, each on the packed test split (``sed_tpu.cli.features``):
 * ``inference_prob_vote``: per-window binarisation and vote counts.
 
 The model comes from ``--checkpoint`` (.npz or .pth) or the workspace's
-``.pth``; ``--device`` must be stated.  ``train`` is not ported yet.
+``.pth``; ``--device`` defaults to ``cuda``.  ``train`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -26,16 +26,18 @@ import time
 
 import numpy as np
 
-from sed_tpu_torch._host import (audio_io, cli_common, config,
-                                 events as post_events, merge as post_merge,
-                                 segment_metrics)
+from sed_tpu_torch import config
 from sed_tpu_torch.cli import common
+from sed_tpu_torch.data import audio_io
+from sed_tpu_torch.eval import segment_metrics
+from sed_tpu_torch.post import events as post_events
+from sed_tpu_torch.post import merge as post_merge
 
 PARAM_COMBINATIONS = [[0.5, 6], [0.5, 7], [1, 5], [1, 6], [1, 7]]
 
 
 def _print_metrics(results: dict, prf: bool = False) -> None:
-    from sed_tpu.eval.calculate_metrics import get_metric
+    from sed_tpu_torch.eval.calculate_metrics import get_metric
     if prf:
         print('Micro precision: {:.3f}'.format(
             get_metric(results, 'precision')))
@@ -48,22 +50,23 @@ def _print_metrics(results: dict, prf: bool = False) -> None:
 
 
 def _setup(args):
-    cfg, ws = cli_common.resolve(args)
+    cfg, ws = common.resolve(args)
     model = common.build_model(args, cfg, ws)
-    sed_params = cli_common.load_sed_params(args, cfg, ws,
-                                            config.EVAL_SED_PARAMS)
+    sed_params = common.load_sed_params(args, cfg, ws,
+                                        config.EVAL_SED_PARAMS)
     return cfg, ws, model, sed_params
 
 
 def inference_prob(args):
     """Batch test-set inference + metrics."""
-    from sed_tpu.data.dataset import AudiosetDataset, DataLoader, TestSampler
+    from sed_tpu_torch.data.dataset import (AudiosetDataset, DataLoader,
+                                            TestSampler)
     from sed_tpu_torch.eval.evaluator import Evaluator
     cfg, ws, model, sed_params = _setup(args)
-    refs = cli_common.reference_csv_paths(args)
+    refs = common.reference_csv_paths(args)
     test_loader = DataLoader(
         AudiosetDataset(),
-        TestSampler(cli_common.hdf5_path(args, cfg, 'testing'),
+        TestSampler(common.hdf5_path(args, cfg, 'testing'),
                     args.batch_size))
     evaluator = Evaluator(model, args.device, sed_params)
     submission = ws.submission_path(create=True)
@@ -93,8 +96,8 @@ def _test_clip_waveforms(args, cfg):
     """Yield (audio_name, 10 s float32 waveform) for every clip of the
     packed test split."""
     import h5py
-    from sed_tpu.data.hdf5_pack import int16_to_float32
-    with h5py.File(cli_common.hdf5_path(args, cfg, 'testing'), 'r') as hf:
+    from sed_tpu_torch.data.hdf5_pack import int16_to_float32
+    with h5py.File(common.hdf5_path(args, cfg, 'testing'), 'r') as hf:
         for i in range(len(hf['audio_name'])):
             yield (hf['audio_name'][i].decode(),
                    int16_to_float32(hf['waveform'][i]))
@@ -111,7 +114,7 @@ def inference_prob_overlap(args):
     """Sliding-window inference with framewise averaging over the
     [overlap_value, window] grid, merged on the device."""
     cfg, ws, model, sed_params = _setup(args)
-    refs = cli_common.reference_csv_paths(args)
+    refs = common.reference_csv_paths(args)
     submission = ws.submission_path(create=True)
 
     all_results = {}
@@ -136,7 +139,7 @@ def inference_prob_vote(args):
     high threshold and overlap-added vote counts."""
     from sed_tpu_torch.serve.engine import window_starts
     cfg, ws, model, sed_params = _setup(args)
-    refs = cli_common.reference_csv_paths(args)
+    refs = common.reference_csv_paths(args)
     thr = np.asarray(
         sed_params.per_class(config.CLASSES_NUM)['sed_high_threshold'])
     submission = ws.submission_path(create=True)
@@ -174,11 +177,11 @@ def inference_prob_vote(args):
 def get_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description='sed_tpu_torch main_strong')
     subparsers = parser.add_subparsers(dest='mode', required=True)
-    cli_common.add_common_args(subparsers.add_parser('train'))
+    common.add_common_args(subparsers.add_parser('train'))
     for mode in ('inference_prob', 'inference_prob_overlap',
                  'inference_prob_vote'):
         sub = subparsers.add_parser(mode)
-        cli_common.add_common_args(sub)
+        common.add_common_args(sub)
         common.add_model_args(sub)
     return parser
 

@@ -1,9 +1,9 @@
 """Threshold-optimization CLI (counterpart of
-``sed_tpu/cli/optimize_thresholds.py``), on ``sed_tpu``'s numpy
-optimizer (``sed_tpu.thresholds.optimizer``).
+``sed_tpu/cli/optimize_thresholds.py``), on the numpy optimizer
+``thresholds/optimizer.py`` (a copy of ``sed_tpu``'s).
 
 * ``optimize_sed_thresholds``: run validation inference once with the
-  port's ``Evaluator`` (``--device`` must be stated), cache the
+  port's ``Evaluator`` (``--device``, default ``cuda``), cache the
   prediction pickle, optimize the 75-dim threshold vector against the
   official segment-based F1, dump ``best_{feat}_{quality}.sed.valid.pkl``
   (what ``predict --sed_thresholds`` reads);
@@ -20,12 +20,12 @@ import argparse
 import os
 import pickle
 
-from sed_tpu_torch._host import cli_common, config
+from sed_tpu_torch import config
 from sed_tpu_torch.cli import common
 
 
 def _optimize(score_calculator, args, init_params):
-    from sed_tpu.thresholds.optimizer import HyperParamsOptimizer
+    from sed_tpu_torch.thresholds.optimizer import HyperParamsOptimizer
     opt = HyperParamsOptimizer(score_calculator,
                                learning_rate=args.learning_rate,
                                epochs=args.epochs, step=0.02, max_search=5)
@@ -33,23 +33,23 @@ def _optimize(score_calculator, args, init_params):
 
 
 def optimize_sed_thresholds(args):
-    from sed_tpu.thresholds.optimizer import \
+    from sed_tpu_torch.thresholds.optimizer import \
         SoundEventDetectionScoreCalculator
-    cfg, ws = cli_common.resolve(args)
-    refs = cli_common.reference_csv_paths(args)
+    cfg, ws = common.resolve(args)
+    refs = common.reference_csv_paths(args)
     pred_path = ws.predictions_path(
         f'valid_predictions_{args.feature_type}_{cfg.name}.pkl',
         create=True)
     submission = ws.submission_path(create=True)
 
     if not os.path.isfile(pred_path) or args.refresh_predictions:
-        from sed_tpu.data.dataset import (AudiosetDataset, DataLoader,
-                                          TestSampler)
+        from sed_tpu_torch.data.dataset import (AudiosetDataset,
+                                                DataLoader, TestSampler)
         from sed_tpu_torch.eval.evaluator import Evaluator
         model = common.build_model(args, cfg, ws)
         valid_loader = DataLoader(
             AudiosetDataset(),
-            TestSampler(cli_common.hdf5_path(args, cfg, 'strong_validation'),
+            TestSampler(common.hdf5_path(args, cfg, 'strong_validation'),
                         args.batch_size))
         _, output_dict = Evaluator(model, args.device).evaluate(
             valid_loader, refs['valid'], submission, cfg.frames_per_second)
@@ -80,8 +80,8 @@ def optimize_sed_thresholds(args):
 def optimize_at_thresholds(args):
     """Audio-tagging (clipwise) threshold optimization on the cached test
     predictions; runs no model."""
-    from sed_tpu.thresholds.optimizer import AudioTaggingScoreCalculator
-    cfg, ws = cli_common.resolve(args)
+    from sed_tpu_torch.thresholds.optimizer import AudioTaggingScoreCalculator
+    cfg, ws = common.resolve(args)
     pred_path = ws.predictions_path(
         f'test_predictions_{args.feature_type}_{cfg.name}.pkl')
     if not os.path.isfile(pred_path):
@@ -106,7 +106,7 @@ def get_parser():
     subparsers = parser.add_subparsers(dest='mode', required=True)
     for mode in ('optimize_sed_thresholds', 'optimize_at_thresholds'):
         sub = subparsers.add_parser(mode)
-        cli_common.add_common_args(sub)
+        common.add_common_args(sub)
         sub.add_argument('--learning_rate', type=float, default=1e-2)
         sub.add_argument('--epochs', type=int, default=70)
         sub.add_argument('--refresh_predictions', action='store_true',

@@ -10,7 +10,8 @@ windows of N files into shared forwards; the XML is the same.
         --input_dir DIR --audio_16k --overlap \\
         --checkpoint tools/bench_checkpoint.npz --device cuda
 
-``--device`` must be stated.  ``--checkpoint`` takes a ``sed_tpu`` .npz
+``--device`` defaults to ``cuda`` (``--device cpu`` asks for the CPU).
+``--checkpoint`` takes a ``sed_tpu`` .npz
 or a reference .pth checkpoint; without it the workspace's
 ``best_<feature>_<quality>.pth`` is read.  ``--sed_thresholds`` reads the
 pickle that ``optimize_thresholds optimize_sed_thresholds`` wrote.
@@ -22,15 +23,15 @@ import argparse
 import os
 import time
 
-from sed_tpu_torch._host import cli_common, config
+from sed_tpu_torch import config
 from sed_tpu_torch.cli import common
 
 
 def _build_engine(args, cfg, ws):
     from sed_tpu_torch.serve.engine import SedInferenceEngine
     model = common.build_model(args, cfg, ws)
-    sed_params = cli_common.load_sed_params(args, cfg, ws,
-                                            config.PREDICT_SED_PARAMS)
+    sed_params = common.load_sed_params(args, cfg, ws,
+                                        config.PREDICT_SED_PARAMS)
     return SedInferenceEngine(
         model, cfg, args.device, sample_duration=args.sample_duration,
         overlap=args.overlap, overlap_value=args.overlap_value,
@@ -47,7 +48,8 @@ def _predict_bulk(args, engine, out_dir, audio_files):
     """Batch the windows of ``--bulk`` files into shared forwards
     (``engine.predict_waveforms``); same events and XML as one file at a
     time."""
-    from sed_tpu_torch._host import audio_io, xml_writer
+    from sed_tpu_torch.data import audio_io
+    from sed_tpu_torch.post import xml_writer
     sr = engine.cfg.sample_rate
     for g0 in range(0, len(audio_files), args.bulk):
         chunk = audio_files[g0:g0 + args.bulk]
@@ -68,7 +70,7 @@ def _predict_bulk(args, engine, out_dir, audio_files):
 
 
 def predict(args):
-    cfg, ws = cli_common.resolve(args)
+    cfg, ws = common.resolve(args)
     engine = _build_engine(args, cfg, ws)
     out_dir = ws.predict_results_dir(create=True)
     audio_files = sorted(
@@ -94,7 +96,7 @@ def get_parser():
     parser = argparse.ArgumentParser(description='sed_tpu_torch predict')
     subparsers = parser.add_subparsers(dest='mode', required=True)
     sub = subparsers.add_parser('predict')
-    cli_common.add_common_args(sub, require_dataset=False)
+    common.add_common_args(sub, require_dataset=False)
     sub.add_argument('--input_dir', type=str, required=True)
     sub.add_argument('--overlap', action='store_true', default=False)
     sub.add_argument('--sample_duration', type=int, default=5)

@@ -19,7 +19,7 @@ import os
 
 import numpy as np
 
-from sed_tpu_torch._host import npz_ckpt
+from sed_tpu_torch.utils import npz_ckpt
 
 BENCH_CHECKPOINT = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(

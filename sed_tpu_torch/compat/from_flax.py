@@ -2,7 +2,7 @@
 
 The input is the JAX package's variables tree as nested numpy dicts
 (``{'params': ..., 'batch_stats': ...}``, what
-``sed_tpu.utils.npz_ckpt.load_variables_npz`` returns).  Layout changes:
+``utils/npz_ckpt.load_variables_npz`` returns).  Layout changes:
 
 * conv kernel HWIO -> OIHW;
 * Dense kernel (in, out) -> Linear weight (out, in);
@@ -12,9 +12,9 @@ The input is the JAX package's variables tree as nested numpy dicts
   and the rest; ``sed_tpu`` already stores torch's (r, z, n) gate order.
 
 ``load_checkpoint`` also reads the reference's ``.pth`` checkpoints:
-``torch.load`` gives the tensors, ``sed_tpu.compat.torch_loader`` (numpy
-only, shared) maps the reference's names onto a flax tree, and the tree
-goes through the same map as a ``.npz``.  Orbax checkpoint directories
+``torch.load`` gives the tensors, ``compat/torch_loader.py`` (numpy
+only, a copy of ``sed_tpu``'s) maps the reference's names onto a flax
+tree, and the tree goes through the same map as a ``.npz``.  Orbax checkpoint directories
 need JAX to read and are refused with the export to use.
 """
 
@@ -26,7 +26,8 @@ from typing import Dict
 import numpy as np
 import torch
 
-from sed_tpu_torch._host import npz_ckpt, torch_loader
+from sed_tpu_torch.compat import torch_loader
+from sed_tpu_torch.utils import npz_ckpt
 
 _BN = {'scale': 'weight', 'bias': 'bias'}
 _STATS = {'mean': 'running_mean', 'var': 'running_var'}

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from sed_tpu_torch._host import filters
+from sed_tpu_torch.dsp import filters
 
 
 def center_pad(x: torch.Tensor, frame_length: int,
@@ -51,7 +51,7 @@ def frame_signal(x: torch.Tensor, frame_length: int, hop_length: int,
 @functools.lru_cache(maxsize=8)
 def frontend_matrices(cfg, device: torch.device):
     """(DFT (n_fft, 2*bins), mel (bins, mel_bins)) float32 row-major on
-    ``device``, made by the function shared with ``sed_tpu`` (whose mel matrix
+    ``device``, made by ``dsp/filters.frontend_arrays`` (whose mel matrix
     is a column-major numpy array)."""
     return tuple(torch.from_numpy(np.ascontiguousarray(m)).to(device)
                  for m in filters.frontend_arrays(cfg))

@@ -5,9 +5,8 @@ The forward runs under ``inference_mode`` on the evaluator's device, one
 batch of the loader at a time.  ``sed_tpu`` pads the ragged last batch
 to keep one jit entry; eval-mode BatchNorm works per sample, so here the
 batch runs as it comes, and the outputs are the same rows.  AP comes
-from ``sed_tpu.eval.ap`` (which needs sklearn, imported when
-``evaluate`` runs) and the segment metrics from the shared
-``segment_metrics``.
+from ``eval/ap.py`` (which imports sklearn when ``evaluate`` runs) and
+the segment metrics from ``eval/segment_metrics.py``.
 """
 
 from __future__ import annotations
@@ -15,8 +14,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sed_tpu_torch._host import (config, events as post_events,
-                                 segment_metrics)
+from sed_tpu_torch import config
+from sed_tpu_torch.eval import segment_metrics
+from sed_tpu_torch.post import events as post_events
 from sed_tpu_torch.ops import wire as wire_ops
 from sed_tpu_torch.serve.engine import check_device
 
@@ -46,10 +46,11 @@ def forward_all(model: torch.nn.Module, loader, device,
 
 
 class Evaluator:
-    """AT + SED evaluation of a port model on an explicit device.  A
-    CUDA device that is absent, or TF32 on, raises (as the engine)."""
+    """AT + SED evaluation of a port model on ``device`` (the card unless
+    the caller asks for the CPU).  A CUDA device that is absent, or TF32
+    on, raises (as the engine): there is no fallback to the CPU."""
 
-    def __init__(self, model: torch.nn.Module, device,
+    def __init__(self, model: torch.nn.Module, device='cuda',
                  sed_params: config.SedParams = config.EVAL_SED_PARAMS):
         self.device = check_device(device)
         self.model = model.to(self.device).eval()
@@ -62,7 +63,7 @@ class Evaluator:
                  submission_path: str, frames_per_second: int):
         """Returns (statistics, output_dict): clipwise AP, framewise AP,
         and sed_eval-style segment metrics from decoded events."""
-        from sed_tpu.eval import ap as ap_metrics
+        from sed_tpu_torch.eval import ap as ap_metrics
         output_dict = self.forward(data_loader)
         statistics = {}
         statistics['clipwise_ap'] = ap_metrics.clipwise_average_precision(

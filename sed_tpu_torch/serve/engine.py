@@ -3,11 +3,16 @@
 
 All overlapped windows of a file, and the windows of many files, are
 batched into shared forwards on the engine's device; event decoding and
-XML stay on the host.  ``predict_clips`` and ``predict_clips_windowed``
-keep the framewise output on the device: it is overlap-added (windowed),
-coverage-normalised and reduced to per-track maxima there, and only the
-threshold masks of the active (clip, class) tracks come back to the
-host.
+XML stay on the host.  ``predict_clips``, ``predict_clips_stream`` and
+``predict_clips_windowed`` keep the framewise output on the device: it
+is overlap-added (windowed), coverage-normalised and reduced to
+per-track maxima there, and only the threshold masks of the active
+(clip, class) tracks come back to the host.
+
+Wires: ``predict_clips``, ``predict_clips_stream`` and
+``infer_framewise`` take float32, int16 or any uint8 wire of
+``ops/wire.py`` (mu-law, qN, ADPCM), decoded on the device;
+``predict_clips_windowed`` takes float32 or int16.
 
 Window schedule (reference ``predict.py:296-338``): windows advance 1 s
 with ``overlap`` else ``sample_duration`` s; window n >= 1 runs only
@@ -23,14 +28,19 @@ both off.
 from __future__ import annotations
 
 import os
-from typing import List, Optional, Sequence, Tuple
+import queue
+import threading
+from typing import Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from sed_tpu_torch._host import (audio_io, config, events as post_events,
-                                 merge as post_merge, vad, vad_native,
-                                 xml_writer)
+from sed_tpu_torch import config
+from sed_tpu_torch.data import audio_io
+from sed_tpu_torch.native import vad_native
+from sed_tpu_torch.post import events as post_events
+from sed_tpu_torch.post import merge as post_merge
+from sed_tpu_torch.post import vad, xml_writer
 from sed_tpu_torch.ops import wire as wire_ops
 
 
@@ -76,13 +86,15 @@ def window_starts(duration: float, sample_duration: int,
 
 
 class SedInferenceEngine:
-    """Batched inference of a port model on an explicit device.
+    """Batched inference of a port model on the card, or on the device
+    the caller names.
 
     Args:
       model: a ``sed_tpu_torch`` model (e.g. from ``from_flax.load_npz``).
       cfg: audio quality config.
-      device: where the forward runs ('cpu', 'cuda', 'cuda:1', ...).  The
-        model is moved there.  A CUDA device that is absent raises.
+      device: where the forward runs ('cuda' by default; 'cpu', 'cuda:1',
+        ...).  The model is moved there.  A CUDA device that is absent
+        raises: there is no fallback to the CPU.
       sample_duration: window length in seconds.
       overlap: 1 s window hop when True, else non-overlapped windows.
       overlap_value: merge hop in seconds.
@@ -91,7 +103,7 @@ class SedInferenceEngine:
       labels: class names, indexed by class.
     """
 
-    def __init__(self, model: torch.nn.Module, cfg, device,
+    def __init__(self, model: torch.nn.Module, cfg, device='cuda',
                  sample_duration: int = 5, overlap: bool = True,
                  overlap_value: float = 1.0,
                  sed_params: config.SedParams = config.PREDICT_SED_PARAMS,
@@ -129,9 +141,22 @@ class SedInferenceEngine:
     @torch.inference_mode()
     def _forward(self, wire: np.ndarray):
         wav = wire_ops.dequant_wire(
-            torch.from_numpy(np.ascontiguousarray(wire)).to(self.device))
+            torch.from_numpy(np.ascontiguousarray(wire)).to(self.device),
+            samples=self.window_samples)
         out = self.model(wav)
         return out['framewise_output'], out['clipwise_output']
+
+    def _check_clip_widths(self, wavs: np.ndarray) -> None:
+        """(N, W) clips whose width is ``window_samples`` or a uint8
+        wire's for it."""
+        widths = {self.window_samples}
+        if wavs.dtype == np.uint8:
+            widths.update(wire_ops.wire_widths(self.window_samples))
+        if wavs.ndim != 2 or wavs.shape[1] not in widths:
+            raise ValueError(f'predict_clips wants (N, {self.window_samples})'
+                             f' clips or a uint8 wire of theirs '
+                             f'({sorted(widths)}), got {wavs.shape} '
+                             f'{wavs.dtype}')
 
     # ------------------------------------------------------------------
     # core batched forward
@@ -139,8 +164,8 @@ class SedInferenceEngine:
 
     def infer_framewise(self, wavs: np.ndarray
                         ) -> Tuple[np.ndarray, np.ndarray]:
-        """(N, window_samples) wire -> (framewise (N, T, C), clipwise
-        (N, C)) as numpy."""
+        """(N, W) clips of ``window_samples``, float32 / int16 or a uint8
+        wire -> (framewise (N, T, C), clipwise (N, C)) as numpy."""
         outs = [self._forward(wavs[i:i + self.batch_size])
                 for i in range(0, wavs.shape[0], self.batch_size)]
         framewise = torch.cat([f for f, _ in outs]).cpu().numpy()
@@ -280,11 +305,13 @@ class SedInferenceEngine:
     def predict_clips(self, wavs: np.ndarray,
                       names: Optional[List[str]] = None
                       ) -> Tuple[List[List[dict]], List[str]]:
-        """N fixed-length clips (N, window_samples), int16 or float32 ->
-        per-clip (events, XML).
+        """N fixed-length clips (N, window_samples) float32 / int16, or
+        their uint8 wire of any width in ``wire_widths(window_samples)``
+        -> per-clip (events, XML).
 
-        One window per clip.  On the device: forward, coverage
-        normalisation, per-track max; then ``_events_on_device``.
+        One window per clip.  On the device: wire decode, forward,
+        coverage normalisation, per-track max; then
+        ``_events_on_device``.
         """
         n = wavs.shape[0]
         if names is None:
@@ -298,28 +325,118 @@ class SedInferenceEngine:
                 per_clip.extend(ev)
                 xmls.extend(xm)
             return per_clip, xmls
-        if wavs.ndim != 2 or wavs.shape[1] != self.window_samples:
-            raise ValueError(f'predict_clips wants (N, {self.window_samples})'
-                             f' clips, got {wavs.shape}')
+        self._check_clip_widths(wavs)
 
         framewise = []
         for i0 in range(0, n, self.batch_size):
             fw, _ = self._forward(wavs[i0:i0 + self.batch_size])
             framewise.append(fw / self._coverage[None, :, None])
         per_clip = self._events_on_device(torch.cat(framewise), names)
+        return per_clip, self._clip_xmls(per_clip, names)
 
-        xmls = [xml_writer.events_to_xml(
+    def _clip_xmls(self, per_clip: List[List[dict]],
+                   names: List[str]) -> List[str]:
+        return [xml_writer.events_to_xml(
                     sorted(evs, key=lambda e: e['onset']), names[i],
                     fallback_span=(0, self.sample_duration))
                 for i, evs in enumerate(per_clip)]
-        return per_clip, xmls
+
+    @torch.inference_mode()
+    def predict_clips_stream(self, chunk_iter: Iterable[np.ndarray],
+                             names: Optional[List[str]] = None
+                             ) -> Tuple[List[List[dict]], List[str]]:
+        """Pipelined ``predict_clips`` over a stream of clip chunks
+        (counterpart of ``sed_tpu``'s ``predict_clips_stream``).
+
+        ``chunk_iter`` yields (n_i, W) arrays, n_i <= batch_size, of any
+        wire ``predict_clips`` accepts; ``names`` spans the concatenated
+        stream.  A reader thread drains the caller's iterator (its file
+        reads and host decode) into a queue of two chunks, so that it
+        overlaps the device; this thread runs the forward and
+        ``_events_on_device`` of each chunk as it comes.  The results
+        equal ``predict_clips`` on the concatenation.  An exception in
+        the iterator is raised here once the thread has ended.
+
+        When this thread stops early (a bad chunk, a failed forward), the
+        reader pulls no further chunk and closes the iterator if it has a
+        ``close`` (a generator's ``finally`` blocks run).  A reader that
+        is inside the iterator's own ``next()`` is waited for at most
+        2 s; it then finishes that one ``next()`` in the background,
+        closes the iterator and ends.
+        """
+        err: List[BaseException] = []
+        stop = threading.Event()
+        chunks: queue.Queue = queue.Queue(maxsize=2)
+
+        def put(item) -> bool:
+            # a bounded put that notices a consumer that has gone
+            while not stop.is_set():
+                try:
+                    chunks.put(item, timeout=0.2)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def reader():
+            it = None
+            try:
+                it = iter(chunk_iter)
+                for chunk in it:
+                    if not put(chunk):
+                        break
+            except BaseException as e:          # raised in the caller
+                err.append(e)
+            finally:
+                try:
+                    if hasattr(it, 'close'):
+                        it.close()
+                except BaseException as e:
+                    err.append(e)
+                put(None)
+
+        thread = threading.Thread(target=reader, daemon=True)
+        thread.start()
+        per_clip: List[List[dict]] = []
+        try:
+            while True:
+                chunk = chunks.get()
+                if chunk is None:
+                    break
+                if chunk.shape[0] > self.batch_size:
+                    raise ValueError(f'a chunk of {chunk.shape[0]} clips '
+                                     f'exceeds batch_size '
+                                     f'{self.batch_size}')
+                self._check_clip_widths(chunk)
+                i0 = len(per_clip)
+                fw, _ = self._forward(chunk)
+                chunk_names = (names[i0:i0 + len(chunk)] if names is not None
+                               else [f'clip{i}.wav'
+                                     for i in range(i0, i0 + len(chunk))])
+                per_clip.extend(self._events_on_device(
+                    fw / self._coverage[None, :, None], chunk_names))
+        finally:
+            # unwind on any exit: wake a reader parked on the full queue
+            stop.set()
+            while True:
+                try:
+                    chunks.get_nowait()
+                except queue.Empty:
+                    break
+            thread.join(timeout=2.0)
+        if err:
+            raise err[0]
+        if names is None:
+            names = [f'clip{i}.wav' for i in range(len(per_clip))]
+        return per_clip, self._clip_xmls(per_clip, names)
 
     @torch.inference_mode()
     def predict_clips_windowed(self, wavs: np.ndarray, names: List[str],
                                duration: float, step: float
                                ) -> List[List[dict]]:
-        """Uniform-length clips (N, samples), int16 or float32 -> per-clip
-        events, with overlapped windows merged on the device (the
+        """Uniform-length clips (N, samples), int16 or float32 (no uint8
+        wire, as in ``sed_tpu``) -> per-clip events, with overlapped
+        windows merged on the device (the
         ``inference_prob_overlap`` path; counterpart of ``sed_tpu``'s
         ``predict_clips_windowed``).
 
@@ -330,6 +447,11 @@ class SedInferenceEngine:
         frame offsets into ``t_win + (W - 1) * interval`` frames, division
         by ``merge.coverage_counts``; then ``_events_on_device``.
         """
+        if wavs.dtype == np.uint8:
+            raise NotImplementedError(
+                'predict_clips_windowed takes int16 or float32 clips; '
+                'uint8 wires go through predict_clips or '
+                'predict_clips_stream')
         n = wavs.shape[0]
         limit = self.dispatch_ahead_batches * self.batch_size
         if n > limit:

@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from sed_tpu_torch._host import config
+from sed_tpu_torch import config
 from sed_tpu_torch.compat.from_flax import load_npz
 from sed_tpu_torch.dsp import frontend as fe
 from sed_tpu_torch.dsp.frontend import logmel_plain

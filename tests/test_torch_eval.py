@@ -377,5 +377,6 @@ def test_cli_exits_without_checkpoint_or_for_train(tmp_path, dataset_dir):
     with pytest.raises(SystemExit, match='save_variables_npz'):
         optimize_thresholds.main(['optimize_sed_thresholds', *base,
                                   '--device', 'cpu'])
-    with pytest.raises(SystemExit):                # --device is required
-        main_strong.get_parser().parse_args(['inference_prob', *base])
+    # --device defaults to the card
+    assert main_strong.get_parser().parse_args(
+        ['inference_prob', *base]).device == 'cuda'

@@ -116,8 +116,12 @@ def test_int16_wire_matches_jax_bit_exact():
 
 
 def test_uint8_wire_not_ported_raises():
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+    """A uint8 buffer without its decoded length is refused (its width
+    cannot tell mu-law from qN), as is a width that is no wire's."""
+    with pytest.raises(ValueError, match='samples'):
         wire.dequant_wire(torch.zeros(1, 80000, dtype=torch.uint8))
+    with pytest.raises(ValueError, match='neither'):
+        wire.dequant_wire(torch.zeros(1, 1234, dtype=torch.uint8), 80000)
 
 
 _NO_JAX_SCRIPT = r'''
@@ -135,7 +139,7 @@ names = [m.name for m in pkgutil.walk_packages(sed_tpu_torch.__path__,
                                                'sed_tpu_torch.')]
 for name in names:
     importlib.import_module(name)
-from sed_tpu_torch._host import config
+from sed_tpu_torch import config
 from sed_tpu_torch.dsp.frontend import logmel_plain
 out = logmel_plain(torch.zeros(2, 16000), config.AUDIO_16K)
 assert out.shape == (2, 101, 64), out.shape

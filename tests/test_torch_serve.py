@@ -146,7 +146,10 @@ def test_cli_requires_npz_checkpoint_and_device(tmp_path):
         torch_predict_cli.main(['predict', '--workspace', str(tmp_path),
                                 '--input_dir', str(tmp_path), '--audio_16k',
                                 '--device', 'cpu'])
-    with pytest.raises(SystemExit):          # --device is required
-        torch_predict_cli.get_parser().parse_args(
-            ['predict', '--workspace', str(tmp_path), '--input_dir',
-             str(tmp_path), '--checkpoint', CKPT])
+    argv = ['predict', '--workspace', str(tmp_path), '--input_dir',
+            str(tmp_path), '--checkpoint', CKPT]
+    # --device defaults to the card, and without CUDA that raises
+    assert torch_predict_cli.get_parser().parse_args(argv).device == 'cuda'
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match='CUDA is not available'):
+            torch_predict_cli.main(argv)

@@ -203,3 +203,15 @@ def test_load_checkpoint_refuses_orbax_dir_and_other_files(tmp_path):
     with pytest.raises(ValueError, match='.pth'):
         from_flax.load_checkpoint(str(tmp_path / 'w.ckpt'), MODEL,
                                   AUDIO_16K, 'cpu')
+
+
+@pytest.mark.parametrize('key', [
+    'encoder.conformer_blocks.0.ffn1.feed_forward_module.1.weight',
+    'module.cnn.cnn.conv0.weight', 'vggish.features.0.weight'])
+def test_pth_of_an_unported_family_raises(key):
+    """Conformer / ESPnet encoder, baseline CNN and VGGish keys raise in
+    the port's name map instead of landing in a Linear's slot."""
+    from sed_tpu_torch.compat import torch_loader as port_loader
+    with pytest.raises(KeyError, match='does not have'):
+        port_loader.state_dict_to_variables(
+            {key: np.zeros((4, 4), np.float32)})
