@@ -55,9 +55,27 @@ checks it against the same engine on the CPU.  Phases:
     (identical results, clips/s of both and of reading alone);
 12. ``StreamingSed`` on a 30 s bench-corpus stream fed in random chunk
     sizes on the GPU: the events of all feeds and the flush equal the
-    CPU engine's ``predict_waveform`` events.
+    CPU engine's ``predict_waveform`` events;
+13. training on the card: Cnn_9layers_Gru_FrameAtt at full width and
+    depth, fresh init, ``BASELINE.json`` ``configs[4]``'s settings
+    (batch 32 with ``specaugment_timeshift_mixup``: weak batches of 192
+    and strong batches of 64 bench-corpus clips of 10 s, int16 as the
+    HDF5 path ships them, clip_bce + frame_bce, AMSGrad at lr 1e-3)
+    through ``train/step.py`` and ``train/prefetch.device_prefetch``: 5
+    warm-up and 20 timed steps (steps/s, clips/s, peak memory, finite
+    losses, 2 kernel launches a step), a profiler breakdown of one step;
+    the kernel against plain at the training shapes (192 and 64 x
+    160000), timed, and checked against a float64 evaluation (plain's
+    own error is ~0.01-0.03 dB in the corpus's quiet frames); one and three steps GPU against CPU
+    (weak 8, strong 4, mixup on, SpecAugment and timeshift off, the same
+    initial weights); a static loss scale against the unscaled step and
+    a step with an ``inf`` in the batch (everything kept, the dynamic
+    scale halved); the Transformer (dropout on) for 5 steps; the
+    trained model through ``save_best_checkpoint`` ->
+    ``cli/common.checkpoint_path`` -> ``compat/from_flax.load_checkpoint``
+    -> ``predict_clips``, events and XML equal to the in-memory model's.
 
-Phases 4, 7, 8, 9, 10, 11 and 12 drive the main paths: each sets the
+Phases 4, 7, 8, 9, 10, 11, 12 and 13 drive the main paths: each sets the
 kernel's launch count to 0 just before and reads it just after, and
 fails if the kernel was not launched.  The script imports nothing of JAX
 and nothing of the JAX package ``sed_tpu``, and checks so at the end.
@@ -155,12 +173,45 @@ def bound_ms(cfg, wav_shape, frames: int) -> tuple:
                                    else 'bytes'), ops_ms, bytes_ms
 
 
-def time_kernel(fused_logmel, logmel_plain, wav, cfg):
+def logmel_float64(wav, cfg):
+    """The plain version's function in float64, on the same matrices."""
+    from sed_tpu_torch.dsp import frontend as fe
+    stft_mat, mel_mat = fe.frontend_matrices(cfg, wav.device)
+    spec = fe.spectrogram(wav.double(), stft_mat.double(), cfg.hop_size,
+                          center=cfg.center, pad_mode=cfg.pad_mode)
+    return fe.power_to_db(spec @ mel_mat.double(), ref=cfg.ref,
+                          amin=cfg.amin)
+
+
+def check_against_float64(got, want, wav, cfg) -> tuple:
+    """Kernel ``got`` within TOL of a float64 evaluation; against plain
+    ``want`` within TOL plus plain's own distance from float64, element
+    by element (plain's fp32 DFT sums cancel in quiet frames, ~80 dB
+    below loud ones).  Returns the largest |kernel - float64| and
+    |plain - float64|."""
+    import torch
+    ref = logmel_float64(wav, cfg)
+    k_err = (got.double() - ref).abs()
+    p_err = (want.double() - ref).abs()
+    limit = TOL['atol'] + TOL['rtol'] * ref.abs()
+    assert (k_err <= limit).all(), 'the kernel is off the float64 log-mel'
+    assert ((got.double() - want.double()).abs() <= limit + p_err).all(), \
+        'kernel and plain differ by more than plain\'s own error'
+    return k_err.max().item(), p_err.max().item()
+
+
+def time_kernel(fused_logmel, logmel_plain, wav, cfg, f64: bool = False):
     """Kernel and plain times (ms, median of 20 each, in turns plain,
-    kernel, kernel, plain) and max |kernel - plain| in dB."""
+    kernel, kernel, plain) and max |kernel - plain| in dB; checked
+    against plain, or with ``f64`` by ``check_against_float64``."""
     import torch
     got, want = fused_logmel(wav, cfg), logmel_plain(wav, cfg)
-    torch.testing.assert_close(got, want, **TOL)
+    if f64:
+        errs = check_against_float64(got, want, wav, cfg)
+        print(f'[13] {tuple(wav.shape)}: max |kernel - float64| {errs[0]!r} '
+              f'dB, max |plain - float64| {errs[1]!r} dB')
+    else:
+        torch.testing.assert_close(got, want, **TOL)
     times = {}
     for name, fn in (('plain', logmel_plain), ('kernel', fused_logmel),
                      ('kernel', fused_logmel), ('plain', logmel_plain)):
@@ -269,6 +320,334 @@ def decode_profile(dequant_wire, batch, tag: str) -> None:
     print(f'[{tag}] profile of one decode of {tuple(batch.shape)} uint8: '
           f'wall {wall_us:.0f} us, device kernels {busy_us:.0f} us in '
           f'{sum(e.count for e in rows)} launches')
+
+
+
+TRAIN_BS = 32                      # configs[4]: --batch_size 32
+WEAK_BS, STRONG_BS = TRAIN_BS * 3 * 2, TRAIN_BS * 2   # with mixup: 192, 64
+PARAM_MAX_DIFF_STEPS = 2.0         # AMSGrad moves an element <= ~lr a step
+
+
+def train_data(cfg, n: int, seed: int):
+    """``n`` bench-corpus clips of 10 s as int16 (the HDF5 path's rows),
+    weak targets (class present) and 100 fps strong targets from the
+    clips' events."""
+    import numpy as np
+    from sed_tpu_torch.bench_corpus import make_clips
+    from sed_tpu_torch.config import LABELS
+    clips, events = make_clips(n, cfg.sample_rate, seconds=10, seed=seed,
+                               return_events=True)
+    pcm = (np.clip(clips, -1, 1) * 32767).astype(np.int16)
+    weak = np.zeros((n, len(LABELS)), np.float32)
+    strong = np.zeros((n, 1000, len(LABELS)), np.float32)
+    for i, evs in enumerate(events):
+        for e in evs:
+            k = LABELS.index(e['event_label'])
+            weak[i, k] = 1.0
+            strong[i, int(e['onset'] * 100):int(e['offset'] * 100), k] = 1.0
+    return pcm, weak, strong
+
+
+def train_batches(pools, seed: int, weak_bs: int, strong_bs: int):
+    """Endless (weak batch, [strong batch]) of numpy rows drawn from the
+    pools in a seeded order, with the reference's mixup lambda stream
+    (weak, then strong), as ``cli/main_strong.train`` assembles them."""
+    import numpy as np
+    from sed_tpu_torch.augment.functional import MixupGenerator
+    (wpcm, wtarget, _), (spcm, _, sstrong) = pools
+    rng = np.random.RandomState(seed)
+    mix = MixupGenerator(mixup_alpha=1.0)
+    while True:
+        wi = rng.choice(len(wpcm), weak_bs, replace=len(wpcm) < weak_bs)
+        si = rng.choice(len(spcm), strong_bs, replace=len(spcm) < strong_bs)
+        weak = {'waveform': wpcm[wi], 'target': wtarget[wi],
+                'mixup_lambda': mix.get_lambda(weak_bs).astype(np.float32)}
+        strong = {'waveform': spcm[si], 'strong_target': sstrong[si],
+                  'mixup_lambda': mix.get_lambda(strong_bs)
+                  .astype(np.float32)}
+        yield weak, [strong]
+
+
+def new_state(model_type, cfg, device, seed: int = 0):
+    """A fresh registry model (``init_weights`` from a CPU generator
+    seeded ``seed``) on ``device`` with its AMSGrad at lr 1e-3."""
+    import torch
+    from sed_tpu_torch.models.registry import get_model
+    from sed_tpu_torch.train.state import create_train_state
+    model = get_model(model_type, cfg)
+    state = create_train_state(model, 1e-3, torch.Generator().manual_seed(seed))
+    model.to(device)
+    return state
+
+
+def state_diff(a, b) -> dict:
+    """Parameters, BatchNorm buffers and AMSGrad moments of two train
+    states: max, mean and share beyond 1e-5 of the parameter differences;
+    the buffers' largest difference (relative above 1); each moment's
+    largest difference over its tensor's scale (+ 1e-3 of the largest)."""
+    import torch
+    pa = dict(a.model.named_parameters())
+    pb = dict(b.model.named_parameters())
+    d = torch.cat([(pa[k].detach().double().cpu()
+                    - pb[k].detach().double().cpu()).abs().reshape(-1)
+                   for k in pa])
+    out = {'param_max': d.max().item(), 'param_mean': d.mean().item(),
+           'param_share_1e-5': (d > 1e-5).double().mean().item()}
+    bn = 0.0
+    for (k, x), y in zip(a.model.named_buffers(), b.model.buffers()):
+        if 'running' in k:
+            x, y = x.double().cpu(), y.double().cpu()
+            bn = max(bn, ((x - y).abs() / y.abs().clamp_min(1.0)).max().item())
+    out['bn_buffers'] = bn
+    for name in ('mu', 'nu', 'nu_max'):
+        ma = {k: a.optimizer.state[p][name].double().cpu()
+              for k, p in pa.items()}
+        mb = {k: b.optimizer.state[p][name].double().cpu()
+              for k, p in pb.items()}
+        top = max(v.abs().max().item() for v in mb.values())
+        out[name] = max(((ma[k] - mb[k]).abs().max()
+                         / (mb[k].abs().max() + 1e-3 * top)).item()
+                        for k in ma)
+    out['steps'] = (a.step, b.step)
+    return out
+
+
+# Tolerances of two train states that took the same steps on two
+# devices (or with and without a loss scale).  AMSGrad's first update is
+# ~lr * sign(g), so an element whose gradient is float noise moves by up
+# to 2 lr the other way; after 1 step that is all that differs (measured
+# on the H100 against the CPU: 0.03% of the elements beyond 1e-5,
+# BatchNorm buffers 3e-7).  Steps 2 and 3 then see slightly different
+# weights through BatchNorm over a 4-clip batch, and the differences
+# spread (measured: 9% of the elements beyond 1e-5, mean 4.2e-6,
+# BatchNorm buffers 6.8e-3, mu 2.7e-2).
+STATE_TOL = {1: dict(param_mean=1e-6, share=1e-2, bn=1e-5, moments=0.05),
+             3: dict(param_mean=1e-5, share=0.2, bn=2e-2, moments=0.1)}
+
+
+def check_state_diff(diff: dict, tag: str) -> None:
+    """``state_diff`` within ``STATE_TOL`` for the states' step count;
+    parameters never more than 2 lr a step apart."""
+    print(f'[13] {tag}: {json.dumps(diff)}')
+    steps = diff['steps'][0]
+    assert steps == diff['steps'][1], diff
+    tol = STATE_TOL[steps]
+    assert diff['param_max'] < steps * PARAM_MAX_DIFF_STEPS * 1e-3, diff
+    assert diff['param_mean'] < tol['param_mean'], diff
+    assert diff['param_share_1e-5'] < tol['share'], diff
+    assert diff['bn_buffers'] < tol['bn'], diff
+    assert max(diff[k] for k in ('mu', 'nu', 'nu_max')) < tol['moments'], diff
+
+
+# the aten ops whose device time (their kernels') makes each group of a
+# train step's breakdown; log-mel is a ctypes launch, found by kernel name
+TRAIN_OP_GROUPS = (
+    ('conv forward', ('aten::cudnn_convolution',)),
+    ('conv backward', ('aten::convolution_backward',)),
+    ('BatchNorm', ('aten::cudnn_batch_norm', 'aten::cudnn_batch_norm_backward',
+                   'aten::var_mean')),
+    ('avg pool', ('aten::avg_pool2d', 'aten::avg_pool2d_backward')),
+    ('GRU', ('aten::_cudnn_rnn', 'aten::_cudnn_rnn_backward')),
+    ('optimizer', ('aten::_foreach_',)))
+
+
+def profile_train_step(step_fn, batch, generator, tag: str) -> None:
+    """Profiler breakdown of one train step: wall, device kernel time,
+    the device's idle share, device time by group (``TRAIN_OP_GROUPS``,
+    the rest as 'other') and the top kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_fn(batch[0], batch[1], generator)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.key_averages()
+    rows = sorted((e for e in events if e.device_type == DeviceType.CUDA),
+                  key=lambda e: -e.self_device_time_total)
+    busy_us = sum(e.self_device_time_total for e in rows)
+    by = {name: sum(e.device_time_total for e in events
+                    if e.device_type == DeviceType.CPU
+                    and any(e.key == op or (op.endswith('_')
+                                            and e.key.startswith(op))
+                            for op in ops))
+          for name, ops in TRAIN_OP_GROUPS}
+    by['log-mel'] = sum(e.self_device_time_total for e in rows
+                        if 'logmel' in e.key)
+    by['other'] = busy_us - sum(by.values())
+    print(f'[{tag}] profile of one train step: wall {wall_us:.0f} us, device '
+          f'kernels {busy_us:.0f} us, device idle share '
+          f'{1 - busy_us / wall_us:.3f}; device time by op (us): '
+          + ', '.join(f'{k} {v:.0f}' for k, v in sorted(
+              by.items(), key=lambda kv: -kv[1])))
+    for e in rows[:15]:
+        print(f'[{tag}]   {e.self_device_time_total:10.0f} us  '
+              f'x{e.count:<4d} {e.key[:90]}')
+
+
+def train_phase(card: str, dev, cfg, pcm):
+    """Phase 13; returns the kernel launches of the timed training run
+    and, per training batch, the kernel's (ms, plain ms, bound, max
+    |kernel - plain|)."""
+    import argparse
+    import numpy as np
+    import torch
+    from sed_tpu_torch import losses as losses_lib
+    from sed_tpu_torch.cli import common
+    from sed_tpu_torch.compat.from_flax import load_checkpoint
+    from sed_tpu_torch.dsp.frontend import logmel_plain
+    from sed_tpu_torch.ops.logmel_kernel import fused_logmel
+    from sed_tpu_torch.serve.engine import SedInferenceEngine
+    from sed_tpu_torch.train.checkpoint import save_best_checkpoint
+    from sed_tpu_torch.train.prefetch import device_prefetch
+    from sed_tpu_torch.train.step import (LossScaleState, init_loss_scale,
+                                          make_train_step)
+    from sed_tpu_torch.utils.paths import Workspace
+    model_type = 'Cnn_9layers_Gru_FrameAtt'
+    pools = (train_data(cfg, WEAK_BS, seed=51), train_data(cfg, STRONG_BS,
+                                                          seed=52))
+
+    def step_for(state, mixup=True, augment=True, loss_scale=None):
+        return make_train_step(
+            state.model, state.optimizer, losses_lib.clip_bce,
+            losses_lib.frame_bce, mixup=mixup, timeshift=augment,
+            spec_augment=augment, loss_scale=loss_scale,
+            wire_samples=cfg.audio_samples)
+
+    # the kernel at the training shapes
+    out = {}
+    for n in (WEAK_BS, STRONG_BS):
+        wav = torch.from_numpy(pools[0 if n == WEAK_BS else 1][0][:n]).to(
+            dev).float() / 32767.0
+        times, err, frames = time_kernel(fused_logmel, logmel_plain, wav, cfg,
+                                         f64=True)
+        bound = bound_ms(cfg, tuple(wav.shape), frames)
+        out[n] = (min(times['kernel']), min(times['plain']), bound, err)
+        print(f'[13] log-mel {cfg.name} {n} x {wav.shape[1]} ({frames} '
+              f'frames) on {card}: kernel {times["kernel"]} ms, plain '
+              f'{times["plain"]} ms (median of 20 each, in turns); bound '
+              f'{bound[0]:.5f} ms by {bound[1]} (operations {bound[2]:.5f}, '
+              f'bytes {bound[3]:.5f}); kernel at {bound[0] / out[n][0]:.4f} '
+              f'of it; max |kernel - plain| {err!r} dB')
+        del wav
+
+    # the timed run: configs[4] at full width and depth
+    state = new_state(model_type, cfg, dev)
+    step_fn = step_for(state)
+    generator = torch.Generator(device=dev).manual_seed(1234)
+    batches = device_prefetch(train_batches(pools, 7, WEAK_BS, STRONG_BS),
+                              size=2, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    fused_logmel.launches = 0
+    losses = []
+    for i in range(25):
+        if i == 5:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        weak, strong = next(batches)
+        losses.append(step_fn(weak, strong, generator)['loss'])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fused_logmel.launches
+    losses = torch.stack(losses).cpu()
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f'[13] train {model_type} on {card}: weak {WEAK_BS} + strong '
+          f'{STRONG_BS} clips of 10 s a step, specaugment_timeshift_mixup; '
+          f'20 timed steps (after 5) in {wall:.3f} s: '
+          f'{20 / wall:.3f} steps/s, {20 * (WEAK_BS + STRONG_BS) / wall:.1f} '
+          f'clips/s; peak memory {peak / 2**30:.2f} GiB; log-mel kernel '
+          f'launches {launches} (25 steps); losses {losses.tolist()}')
+    assert torch.isfinite(losses).all(), 'a training loss is not finite'
+    assert launches == 2 * 25, f'{launches} kernel launches in 25 steps'
+    assert state.step == 25
+    profile_train_step(step_fn, next(batches), generator, '13')
+    batches.close()
+
+    # GPU against CPU: the same initial weights and batches
+    small = train_batches(pools, 3, 8, 4)
+    sb = [next(small) for _ in range(3)]
+    states = {d: new_state(model_type, cfg, d) for d in (dev, 'cpu')}
+    steps = {d: step_for(s, augment=False) for d, s in states.items()}
+
+    def to(batch, d):
+        return {k: torch.from_numpy(v).to(d) for k, v in batch.items()}
+    for i, (weak, strong) in enumerate(sb):
+        got = {d: steps[d](to(weak, d), [to(strong[0], d)],
+                           torch.Generator(device=d).manual_seed(i))
+               for d in states}
+        lg, lc = got[dev]['loss'].item(), got['cpu']['loss'].item()
+        print(f'[13] step {i + 1} loss GPU {lg!r} CPU {lc!r}')
+        assert abs(lg - lc) <= 1e-4 * abs(lc), (lg, lc)
+        if i in (0, 2):
+            check_state_diff(state_diff(states[dev], states['cpu']),
+                             f'GPU - CPU after {i + 1} step(s)')
+
+    # loss scaling: a static scale against the unscaled step, then an inf
+    a, b = new_state(model_type, cfg, dev), new_state(model_type, cfg, dev)
+    weak, strong = to(sb[0][0], dev), to(sb[0][1][0], dev)
+    ma = step_for(a, augment=False)(weak, [strong], None)
+    mb = step_for(b, augment=False, loss_scale=1024.0)(weak, [strong], None)
+    assert mb['grads_finite'] and ma['loss'].item() == mb['loss'].item()
+    check_state_diff(state_diff(a, b), 'static scale 1024 - unscaled')
+    scaled = step_for(b, augment=False, loss_scale='dynamic')
+    before = {k: v.clone() for k, v in b.model.state_dict().items()}
+    opt_before = {id(p): {k: v.clone() for k, v in b.optimizer.state[p]
+                          .items() if torch.is_tensor(v)}
+                  for p in b.model.parameters()}
+    bad = dict(weak, waveform=weak['waveform'].float() / 32767.0)
+    bad['waveform'][0, 0] = float('inf')
+    m, ss = scaled(bad, [strong], None, init_loss_scale())
+    assert not m['grads_finite'] and b.step == 1
+    assert ss == LossScaleState(2.0 ** 11, 0), ss
+    assert all(torch.equal(v, before[k])
+               for k, v in b.model.state_dict().items())
+    assert all(torch.equal(v, opt_before[id(p)][k])
+               for p in b.model.parameters()
+               for k, v in b.optimizer.state[p].items() if torch.is_tensor(v))
+    print('[13] loss scaling: static 1024 step = unscaled step (loss '
+          'bitwise); inf in the batch: step skipped, parameters, AMSGrad '
+          'state, step and BatchNorm buffers bit-identical, scale 4096 -> '
+          f'{ss.scale}')
+
+    # the Transformer, dropout on
+    tstate = new_state('Cnn_9layers_Transformer_FrameAtt', cfg, dev)
+    tstep = step_for(tstate)
+    tb = train_batches(pools, 11, WEAK_BS, STRONG_BS)
+    tl = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        weak, strong = next(tb)
+        tl.append(tstep(to(weak, dev), [to(strong[0], dev)], generator)
+                  ['loss'].item())
+    print(f'[13] Transformer 5 steps at weak {WEAK_BS} + strong {STRONG_BS} '
+          f'on {card}: losses {tl}, {5 / (time.perf_counter() - t0):.3f} '
+          f'steps/s (host uploads included)')
+    assert np.isfinite(tl).all()
+    del tstate, tstep
+
+    # checkpoint round trip through the CLI's resolution
+    with tempfile.TemporaryDirectory() as tmp:
+        args = argparse.Namespace(checkpoint=None, feature_type='logmel',
+                                  model_type=model_type)
+        ws = Workspace(root=tmp, model_type=model_type)
+        saved = save_best_checkpoint(ws.checkpoint_path('logmel', cfg.name,
+                                                        create=True), state)
+        path = common.checkpoint_path(args, cfg, ws)
+        assert path == saved, (path, saved)
+        loaded = load_checkpoint(path, model_type, cfg, dev)
+    got = SedInferenceEngine(loaded, cfg, dev, batch_size=32).predict_clips(pcm)
+    want = SedInferenceEngine(state.model, cfg, dev,
+                              batch_size=32).predict_clips(pcm)
+    assert got == want, 'the saved checkpoint predicts other events'
+    print(f'[13] {os.path.basename(path)} -> checkpoint_path -> '
+          f'load_checkpoint -> predict_clips on 64 clips: '
+          f'{sum(map(len, got[0]))} events, events and XML equal to the '
+          'trained model in memory')
+    return launches, out
 
 
 def main() -> None:
@@ -637,6 +1016,12 @@ def main() -> None:
           f'CPU engine\'s predict_waveform; kernel launches {r_launches}; '
           f'{wall:.3f} s wall')
 
+    # -- 13. training on the card -------------------------------------------
+    t13 = time.perf_counter()
+    n_launch13, train_kernel = train_phase(card, dev, cfg, pcm)
+    max_err = max([max_err] + [v[3] for v in train_kernel.values()])
+    print(f'[13] training phase done in {time.perf_counter() - t13:.1f} s')
+
     blocked = [m for m in sys.modules
                if m.split('.')[0] in ('sed_tpu', 'jax', 'jaxlib', 'flax',
                                       'optax', 'orbax')]
@@ -648,7 +1033,7 @@ def main() -> None:
         'source': 'sed_tpu_torch/csrc/logmel.cu',
         'replaces': 'sed_tpu/ops/logmel_kernel.py:48',
         'launches': (launches + t_launches + w_launches + e_launches
-                     + v_launches + s_launches + r_launches),
+                     + v_launches + s_launches + r_launches + n_launch13),
         'max_abs_err': max_err,
         'ms': kernel_ms, 'plain_ms': plain_ms,
         'bound_ms': bound[0], 'bound_by': bound[1],

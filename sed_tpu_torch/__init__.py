@@ -9,19 +9,25 @@ dsp         log-mel frontend in plain PyTorch (the kernel's plain version)
             and the DFT / mel filter design
 ops         the hand-written CUDA log-mel kernel's wrapper; the device
             decode of every fixed-width wire (int16, mu-law, qN, ADPCM)
-models      nn.Module model zoo (CnnSed family: CNN, + BiGRU, + MultiHead)
+models      nn.Module model zoo (CnnSed family: CNN, + BiGRU, + MultiHead),
+            train mode included; sed_tpu's initialisers
+augment     SpecAugment, mixup and timeshift on tensors
+losses      clip / frame BCE
+train       optax-form AMSGrad, the joint train step (loss scaling),
+            .pth checkpoint lineage, device prefetch
 compat      flax variables / reference .pth -> PyTorch state_dict bridge;
             seeded Transformer weights on the bench checkpoint
 serve       wav -> events -> XML serving engine (batched, pipelined
             stream, on-device windowed merging) and ``StreamingSed``
 post        event decoding, overlap-add merging, XML
 native      the g++-built host event decoder (numpy fallback)
-data        audio I/O and wire constants; the HDF5 evaluation loader
+data        audio I/O and wire constants; the HDF5 datasets, samplers
+            and loaders
 eval        Evaluator: forward over a split, AP and segment metrics
 thresholds  the numpy threshold optimizer
-utils       .npz checkpoints, workspace paths
-cli         ``predict``, ``main_strong`` (inference modes) and
-            ``optimize_thresholds`` entry points
+utils       .npz checkpoints, workspace paths, statistics, logging
+cli         ``predict``, ``main_strong`` (training and inference),
+            ``main`` (weak-only training) and ``optimize_thresholds``
 
 It imports nothing of JAX and nothing of ``sed_tpu``: the numpy-only
 host modules it needs are its own copies, laid out as in ``sed_tpu``.

@@ -1,11 +1,14 @@
 """Shared CLI plumbing of the port: quality flags, workspace paths and
 threshold pickles (a copy of ``sed_tpu/cli/common.py``'s) and model
-loading (counterpart of its JAX-only ``build_model_and_variables``).
+loading (counterpart of its JAX-only ``build_model_and_variables``):
+``--checkpoint``, else the trainer's best checkpoint, else the
+workspace's reference ``.pth``; the training CLIs' shared set-up.
 """
 
 from __future__ import annotations
 
 import argparse
+import logging
 import os
 from typing import Tuple
 
@@ -90,12 +93,15 @@ def load_sed_params(args, cfg: AudioConfig, ws: Workspace,
     return default
 
 
-def add_model_args(parser) -> None:
+def add_model_args(parser, train: bool = False) -> None:
     """``--checkpoint`` and ``--device`` (default ``cuda``: the entry
     points run on the card unless asked for the CPU)."""
-    parser.add_argument('--checkpoint', type=str, default=None,
-                        help='sed_tpu .npz or reference .pth checkpoint '
-                             '(default: the workspace .pth)')
+    parser.add_argument(
+        '--checkpoint', type=str, default=None,
+        help=('sed_tpu .npz or reference-layout .pth weights to start '
+              'from (default: a fresh initialisation)') if train else
+             ('sed_tpu .npz or reference .pth checkpoint (default: the '
+              "workspace's best checkpoint, then its .pth)"))
     parser.add_argument('--device', type=str, default='cuda',
                         help="torch device to run on (default 'cuda'; "
                              "'cpu' asks for the CPU)")
@@ -103,24 +109,35 @@ def add_model_args(parser) -> None:
 
 def checkpoint_path(args, cfg, ws) -> str:
     """``--checkpoint``, else the workspace's checkpoint in the order
-    ``sed_tpu`` looks: its Orbax directory (refused: it needs JAX to
-    read), then the reference ``.pth``.  No checkpoint exits: the port
-    cannot reproduce ``sed_tpu``'s fresh init, so it does not make one."""
+    ``sed_tpu`` looks: the lineage directory at the checkpoint stem (its
+    ``BEST`` marker, else its highest ``iter_<N>.pth``; what the port's
+    trainer saves), then the reference ``.pth``.  A ``sed_tpu`` Orbax
+    checkpoint there is refused: it needs JAX to read.  No checkpoint
+    exits: the port does not serve a random initialisation."""
+    from sed_tpu_torch.train.checkpoint import (best_checkpoint_path,
+                                                is_orbax_checkpoint)
     path = getattr(args, 'checkpoint', None)
     if path is not None:
         return path
-    orbax = ws.checkpoint_path(args.feature_type, cfg.name)
+    stem = ws.checkpoint_path(args.feature_type, cfg.name)
     pth = ws.torch_checkpoint_path(args.feature_type, cfg.name)
-    if os.path.isdir(orbax):
-        raise SystemExit(
-            f'{orbax} is an Orbax checkpoint directory, which needs JAX to '
-            'read; export it with sed_tpu.utils.npz_ckpt.save_variables_npz '
-            'and pass --checkpoint')
+    if os.path.isdir(stem):
+        best = best_checkpoint_path(stem)
+        if best is not None and os.path.isfile(best):
+            return best
+        if is_orbax_checkpoint(stem) or any(
+                is_orbax_checkpoint(os.path.join(stem, d))
+                for d in os.listdir(stem)):
+            raise SystemExit(
+                f'{stem} holds an Orbax checkpoint, which needs JAX to '
+                'read; export it with sed_tpu.utils.npz_ckpt.'
+                'save_variables_npz and pass --checkpoint')
     if os.path.isfile(pth):
         return pth
-    raise SystemExit(f'no checkpoint: pass --checkpoint (.npz or .pth) or '
-                     f'put a reference checkpoint at {pth}; the port does '
-                     'not initialise a model at random')
+    raise SystemExit(f'no checkpoint: pass --checkpoint (.npz or .pth), '
+                     f'train one into {stem}, or put a reference checkpoint '
+                     f'at {pth}; the port does not serve a random '
+                     'initialisation')
 
 
 def build_model(args, cfg, ws):
@@ -140,3 +157,59 @@ def build_model(args, cfg, ws):
     except ValueError as e:
         raise SystemExit(str(e)) from e
 
+
+def setup_training(args):
+    """Checks, TF32 off, device, logging: what both training CLIs do
+    before they touch the workspace's data."""
+    from sed_tpu_torch.serve.engine import check_device, disable_tf32
+    from sed_tpu_torch.utils.logging_utils import create_logging
+    if args.feature_type != 'logmel':
+        raise SystemExit(f'--feature_type {args.feature_type}: only logmel '
+                         'is ported')
+    if getattr(args, 'compute_dtype', 'f32') == 'bf16':
+        raise SystemExit('--compute_dtype bf16: the bf16 conv stack (and the '
+                         'loss-scaled step as its default) is not ported '
+                         'yet, see ROADMAP.md queue 1 item 3; train in f32')
+    disable_tf32()
+    device = check_device(args.device)
+    cfg, ws = resolve(args)
+    create_logging(ws.logs_dir(create=True))
+    logging.info(args)
+    return device, cfg, ws
+
+
+def train_state(args, cfg, device):
+    """The registry model, drawn fresh from a generator seeded 0 (or
+    loaded from ``--checkpoint``), on ``device``, with its AMSGrad."""
+    import torch
+    from sed_tpu_torch.compat.from_flax import load_checkpoint
+    from sed_tpu_torch.models.registry import get_model
+    from sed_tpu_torch.train.state import create_train_state
+    from sed_tpu_torch.utils.logging_utils import count_parameters
+    if args.checkpoint is not None:
+        model = load_checkpoint(args.checkpoint, args.model_type, cfg, 'cpu')
+    else:
+        model = get_model(args.model_type, cfg,
+                          feature_type=args.feature_type)
+    state = create_train_state(
+        model, args.learning_rate, torch.Generator().manual_seed(0),
+        fresh=args.checkpoint is None)
+    state.model.to(device)
+    count_parameters(state.model)        # utilities.py:17-27 table
+    return state
+
+
+def resume_training(args, state, ckpt_dir, statistics_container) -> int:
+    """Restore the checkpoint saved at exactly ``--resume_iteration``
+    and drop the statistics recorded past it; returns the iteration."""
+    from sed_tpu_torch.train.checkpoint import (restore_checkpoint,
+                                                resume_checkpoint_path)
+    if args.resume_iteration <= 0:
+        return 0
+    resume_path = resume_checkpoint_path(ckpt_dir, args.resume_iteration)
+    restore_checkpoint(resume_path, state)
+    logging.info('resumed from %s at iteration %d', resume_path, state.step)
+    if os.path.isfile(statistics_container.statistics_path):
+        # utils/utilities.py:358-371
+        statistics_container.load_state_dict(args.resume_iteration)
+    return state.step

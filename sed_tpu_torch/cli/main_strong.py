@@ -1,11 +1,22 @@
-"""Test-set inference and metrics CLI (counterpart of
-``sed_tpu/cli/main_strong.py``'s inference modes).
+"""Joint weak+strong training, test-set inference and metrics CLI
+(counterpart of ``sed_tpu/cli/main_strong.py``).
 
+    python -m sed_tpu_torch.cli.main_strong train --dataset_dir DS \\
+        --workspace WS --audio_16k --augmentation specaugment_timeshift_mixup
     python -m sed_tpu_torch.cli.main_strong inference_prob_overlap \\
         --dataset_dir DS --workspace WS --audio_16k --device cuda
 
-Modes, each on the packed test split (``sed_tpu.cli.features``):
+Modes, on the packed splits (``sed_tpu.cli.features``):
 
+* ``train``: the reference's loop (``pytorch/main_strong.py:40-413``):
+  each iteration one joint step (``train/step.py``) on a weak batch and
+  a strong batch (plus an FSD50K batch with ``--fsd50k``), fetched by a
+  worker pool and copied to the device ahead of the step; every
+  ``--eval_interval`` iterations an evaluation on ``strong_validation``
+  and ``testing``, and the best checkpoint by validation framewise mAP
+  and error rate saved as ``iter_<N>.pth`` + ``BEST`` in the workspace's
+  checkpoint directory; ``--resume_iteration N`` restarts from the
+  checkpoint at N;
 * ``inference_prob``: one forward per 10 s clip (``Evaluator``), the
   submission CSV, micro P/R/F1/ER, and the ``test_predictions_*.pkl``
   pickle for offline threshold tuning;
@@ -14,13 +25,16 @@ Modes, each on the packed test split (``sed_tpu.cli.features``):
   [overlap_value, window] of ``PARAM_COMBINATIONS``;
 * ``inference_prob_vote``: per-window binarisation and vote counts.
 
-The model comes from ``--checkpoint`` (.npz or .pth) or the workspace's
-``.pth``; ``--device`` defaults to ``cuda``.  ``train`` is not ported yet.
+The model comes from ``--checkpoint`` (.npz or .pth), the trainer's best
+checkpoint or the workspace's ``.pth``; ``--device`` defaults to
+``cuda``.  Training starts from a fresh initialisation, or from
+``--checkpoint``.
 """
 
 from __future__ import annotations
 
 import argparse
+import logging
 import pickle
 import time
 
@@ -55,6 +69,149 @@ def _setup(args):
     sed_params = common.load_sed_params(args, cfg, ws,
                                         config.EVAL_SED_PARAMS)
     return cfg, ws, model, sed_params
+
+
+def train(args):
+    """Joint weak+strong training (``sed_tpu/cli/main_strong.py:39-276``)."""
+    import torch
+    from sed_tpu_torch import losses as losses_lib
+    from sed_tpu_torch.augment.functional import MixupGenerator
+    from sed_tpu_torch.data.dataset import (AudiosetDataset, DataLoader,
+                                            TestSampler, TrainSampler,
+                                            cycle_iteration)
+    from sed_tpu_torch.eval.evaluator import Evaluator
+    from sed_tpu_torch.train.checkpoint import save_best_checkpoint
+    from sed_tpu_torch.train.prefetch import device_prefetch
+    from sed_tpu_torch.train.step import make_train_step
+    from sed_tpu_torch.utils.statistics import StatisticsContainer
+
+    device, cfg, ws = common.setup_training(args)
+    mixup = 'mixup' in args.augmentation
+    timeshift = 'timeshift' in args.augmentation
+    spec_augment = 'specaugment' in args.augmentation
+
+    refs = common.reference_csv_paths(args)
+    weak_h5 = common.hdf5_path(args, cfg, 'weak_training')
+    strong_h5 = common.hdf5_path(args, cfg, 'strong_training')
+    valid_h5 = common.hdf5_path(args, cfg, 'strong_validation')
+    test_h5 = common.hdf5_path(args, cfg, 'testing')
+
+    # train streams ship int16 (or --train_wire) rows, decoded on the
+    # device by the step; the eval loaders keep the float path
+    train_dataset = AudiosetDataset(dequantize=False, wire=args.train_wire)
+    dataset = AudiosetDataset()
+    # the reference's batch sizes INCLUDING its conditional precedence
+    # (``main_strong.py:229-236``): with mixup the weak stream draws
+    # (bs*3)*2; without mixup the x3 weak multiplier is dropped too
+    weak_bs = (args.batch_size * 3) * 2 if mixup else args.batch_size
+    strong_bs = args.batch_size * 2 if mixup else args.batch_size
+
+    def _train_loader(h5, bs):
+        return DataLoader(train_dataset, TrainSampler(h5, bs),
+                          num_workers=args.num_workers)
+
+    weak_iter = cycle_iteration(_train_loader(weak_h5, weak_bs))
+    strong_iters = [cycle_iteration(_train_loader(strong_h5, strong_bs))]
+    if args.fsd50k:
+        strong_iters.append(cycle_iteration(_train_loader(
+            common.hdf5_path(args, cfg, 'strong_fsd50k'), strong_bs)))
+    valid_loader = DataLoader(dataset, TestSampler(valid_h5,
+                                                   args.batch_size))
+    test_loader = DataLoader(dataset, TestSampler(test_h5, args.batch_size))
+
+    state = common.train_state(args, cfg, device)
+    ckpt_dir = ws.checkpoint_path(args.feature_type, cfg.name, create=True)
+    statistics_container = StatisticsContainer(
+        ws.statistics_path(args.feature_type, cfg.name, create=True))
+    iteration = common.resume_training(args, state, ckpt_dir,
+                                       statistics_container)
+
+    step_fn = make_train_step(
+        state.model, state.optimizer,
+        losses_lib.get_loss_func(args.loss_type),
+        losses_lib.get_loss_func('frame_bce'), mixup=mixup,
+        timeshift=timeshift, spec_augment=spec_augment,
+        wire_samples=cfg.audio_samples)
+    evaluator = Evaluator(state.model, device, config.EVAL_SED_PARAMS)
+    submission = ws.submission_path(create=True)
+    mixup_gen = MixupGenerator(mixup_alpha=1.0)
+
+    def _assemble_batches():
+        # runs in the prefetch thread: draw, pair mixup lambdas, strip
+        # host-only fields; the order weak, then each strong stream, is
+        # the lambda stream's
+        while True:
+            weak_batch = next(weak_iter)
+            strong_batches = [next(it) for it in strong_iters]
+            if mixup:
+                for b in (weak_batch, *strong_batches):
+                    b['mixup_lambda'] = mixup_gen.get_lambda(
+                        len(b['waveform'])).astype(np.float32)
+            for b in (weak_batch, *strong_batches):
+                b.pop('audio_name', None)
+            weak_batch.pop('strong_target', None)
+            yield weak_batch, strong_batches
+
+    # copy batch k+1 to the device while the step runs batch k
+    batch_iter = device_prefetch(_assemble_batches(), size=2, device=device)
+
+    best_er, best_map, best_iteration = 10000.0, 0.0, 0
+    # every draw of the steps (SpecAugment, timeshift, dropout) comes
+    # from this generator on the device; sed_tpu's PRNGKey(1234)
+    generator = torch.Generator(device=device).manual_seed(1234)
+    train_bgn_time = time.time()
+
+    while iteration != args.stop_iteration:
+        if (iteration % args.eval_interval == 0
+                and iteration > args.resume_iteration):
+            logging.info('------------------------------------')
+            logging.info('Iteration: %d', iteration)
+            train_fin_time = time.time()
+            for data_type, loader, ref_csv in [
+                    ('valid', valid_loader, refs['valid']),
+                    ('test', test_loader, refs['test'])]:
+                statistics, _ = evaluator.evaluate(
+                    loader, ref_csv, submission, cfg.frames_per_second)
+                logging.info('%s statistics:', data_type)
+                logging.info('    Clipwise mAP: %.3f',
+                             np.nanmean(statistics['clipwise_ap']))
+                logging.info('    Framewise mAP: %.3f',
+                             np.nanmean(statistics['framewise_ap']))
+                logging.info(
+                    '    %s',
+                    statistics['sed_metrics']['overall']['error_rate'])
+                statistics_container.append(data_type, iteration,
+                                            statistics)
+                if data_type == 'valid':
+                    fmap = np.nanmean(statistics['framewise_ap'])
+                    er = statistics['sed_metrics']['overall'][
+                        'error_rate']['error_rate']
+                    if fmap >= best_map and er < best_er:
+                        best_map, best_er, best_iteration = \
+                            fmap, er, iteration
+                        saved = save_best_checkpoint(ckpt_dir, state)
+                        logging.info('Model saved to %s for iteration %d',
+                                     saved, iteration)
+            statistics_container.dump()
+            logging.info('Train time: %.3f s, validate time: %.3f s',
+                         train_fin_time - train_bgn_time,
+                         time.time() - train_fin_time)
+            train_bgn_time = time.time()
+
+        weak_batch, strong_batches = next(batch_iter)
+        metrics = step_fn(weak_batch, strong_batches, generator)
+        if iteration % 100 == 0:
+            logging.info(
+                '%d iteration - weak: %.4f, strong: %.4f, total: %.4f',
+                iteration, float(metrics['weak_loss']),
+                float(metrics['strong_loss']), float(metrics['loss']))
+
+        iteration += 1
+        if iteration == args.stop_iteration:
+            logging.info('    Best iteration: %d', best_iteration)
+            break
+    batch_iter.close()
+    return state
 
 
 def inference_prob(args):
@@ -174,10 +331,37 @@ def inference_prob_vote(args):
     return all_results
 
 
+def add_train_args(sub) -> None:
+    """``main_strong train``'s flags (``sed_tpu/cli/main_strong.py:428-454``)
+    and ``--device`` / ``--checkpoint``."""
+    sub.add_argument('--learning_rate', type=float, default=1e-3)
+    sub.add_argument('--stop_iteration', type=int, default=50000)
+    sub.add_argument('--resume_iteration', type=int, default=0)
+    sub.add_argument('--eval_interval', type=int, default=1000)
+    sub.add_argument('--fsd50k', action='store_true', default=False)
+    sub.add_argument('--compute_dtype', type=str, default='f32',
+                     choices=['f32', 'bf16'],
+                     help='conv-stack computation dtype; bf16 is not '
+                          'ported yet (ROADMAP.md)')
+    sub.add_argument('--num_workers', type=int, default=2,
+                     help='data-loader fetch threads (the reference uses '
+                          '8 torch workers)')
+    sub.add_argument('--train_wire', type=str, default='int16',
+                     choices=['int16', 'mulaw8', 'q6', 'q5', 'q4', 'adpcm4'],
+                     help='waveform wire format of the train batches, '
+                          'decoded on the device: int16 (exact, default), '
+                          'mulaw8 (2x fewer host->device bytes), q6/q5/q4 '
+                          'block-scaled (~5.2-7.8x fewer), adpcm4 IMA '
+                          'ADPCM (~3.9x fewer)')
+    common.add_model_args(sub, train=True)
+
+
 def get_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description='sed_tpu_torch main_strong')
     subparsers = parser.add_subparsers(dest='mode', required=True)
-    common.add_common_args(subparsers.add_parser('train'))
+    sub = subparsers.add_parser('train')
+    common.add_common_args(sub)
+    add_train_args(sub)
     for mode in ('inference_prob', 'inference_prob_overlap',
                  'inference_prob_vote'):
         sub = subparsers.add_parser(mode)
@@ -188,11 +372,8 @@ def get_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = get_parser().parse_args(argv)
-    if args.mode == 'train':
-        raise SystemExit('main_strong train is not ported to sed_tpu_torch '
-                         'yet (ROADMAP queue 1 item 9): train with '
-                         'sed_tpu.cli.main_strong')
-    return {'inference_prob': inference_prob,
+    return {'train': train,
+            'inference_prob': inference_prob,
             'inference_prob_overlap': inference_prob_overlap,
             'inference_prob_vote': inference_prob_vote}[args.mode](args)
 

@@ -11,7 +11,9 @@ The input is the JAX package's variables tree as nested numpy dicts
 * ``gru/{fw,bw}/{w_ih,w_hh,b_ih,b_hh}`` -> ``gru.weight_ih_l0[_reverse]``
   and the rest; ``sed_tpu`` already stores torch's (r, z, n) gate order.
 
-``load_checkpoint`` also reads the reference's ``.pth`` checkpoints:
+``reference_state_dict`` writes a port ``state_dict`` in the reference's
+layout (what the port's trainer saves) and ``port_state_dict`` reads it
+back.  ``load_checkpoint`` also reads the reference's ``.pth`` checkpoints:
 ``torch.load`` gives the tensors, ``compat/torch_loader.py`` (numpy
 only, a copy of ``sed_tpu``'s) maps the reference's names onto a flax
 tree, and the tree goes through the same map as a ``.npz``.  Orbax checkpoint directories
@@ -73,6 +75,30 @@ def state_dict_from_variables(variables: dict) -> Dict[str, torch.Tensor]:
                 state[key[:-len('running_mean')] + 'num_batches_tracked'] = \
                     torch.tensor(0, dtype=torch.long)
     return state
+
+
+# the reference's attention head is two 1x1 Conv1d, weights (O, I, 1);
+# the port's are Linear, (O, I)
+_CONV1D_HEAD = ('att_block.att.weight', 'att_block.cla.weight')
+
+
+def reference_state_dict(state: Dict[str, torch.Tensor]
+                         ) -> Dict[str, torch.Tensor]:
+    """A port model's ``state_dict`` -> the reference's layout (the port's
+    names, ``att_block.{att,cla}.weight`` as Conv1d (O, I, 1)), on the
+    CPU: what ``sed_tpu.compat.torch_loader`` and the reference read."""
+    out = {}
+    for key, value in state.items():
+        value = value.detach().to('cpu', copy=True)
+        out[key] = value[:, :, None] if key in _CONV1D_HEAD else value
+    return out
+
+
+def port_state_dict(reference: Dict[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+    """Inverse of ``reference_state_dict``."""
+    return {key: value[:, :, 0] if key in _CONV1D_HEAD else value
+            for key, value in reference.items()}
 
 
 def load_variables(model: torch.nn.Module, variables: dict):

@@ -103,6 +103,13 @@ __host__ __device__ inline int span_store_floats(int hop, int n_fft) {
   return s + kSpanPad * ((s - 1) / hop);
 }
 
+// max(v, amin) that keeps a NaN, as jnp.maximum and torch.clamp do:
+// fmaxf returns amin for a NaN v, so a non-finite input would come out
+// as the -100 dB floor and a bad batch would look finite
+__device__ __forceinline__ float clamp_amin(float v, float amin) {
+  return v >= amin ? v : (isnan(v) ? v : amin);
+}
+
 __global__ void __launch_bounds__(kThreads, 2)
 logmel_kernel(const float* __restrict__ wav,         // (batch, ld)
               const double2* __restrict__ dft,       // fragment order
@@ -260,8 +267,8 @@ logmel_kernel(const float* __restrict__ wav,         // (batch, ld)
       v1 = fmaf(pn[r], mn.y, v1);
       if (row < n_frames) {
         float2 o;
-        o.x = 10.f * log10f(fmaxf(v0, amin)) - db_shift;
-        o.y = 10.f * log10f(fmaxf(v1, amin)) - db_shift;
+        o.x = 10.f * log10f(clamp_amin(v0, amin)) - db_shift;
+        o.y = 10.f * log10f(clamp_amin(v1, amin)) - db_shift;
         *reinterpret_cast<float2*>(
             out + ((size_t)b * n_frames + row) * kMels + 8 * m + 2 * t) = o;
       }

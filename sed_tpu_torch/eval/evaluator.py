@@ -48,16 +48,25 @@ def forward_all(model: torch.nn.Module, loader, device,
 class Evaluator:
     """AT + SED evaluation of a port model on ``device`` (the card unless
     the caller asks for the CPU).  A CUDA device that is absent, or TF32
-    on, raises (as the engine): there is no fallback to the CPU."""
+    on, raises (as the engine): there is no fallback to the CPU.
+
+    The forward runs the model in eval mode and gives it back in the mode
+    it had, so a train loop that evaluates keeps training in training
+    mode."""
 
     def __init__(self, model: torch.nn.Module, device='cuda',
                  sed_params: config.SedParams = config.EVAL_SED_PARAMS):
         self.device = check_device(device)
-        self.model = model.to(self.device).eval()
+        self.model = model.to(self.device)
         self.sed_params = sed_params
 
     def forward(self, data_loader) -> dict:
-        return forward_all(self.model, data_loader, self.device)
+        was_training = self.model.training
+        self.model.eval()
+        try:
+            return forward_all(self.model, data_loader, self.device)
+        finally:
+            self.model.train(was_training)
 
     def evaluate(self, data_loader, reference_csv_path: str,
                  submission_path: str, frames_per_second: int):

@@ -1,18 +1,23 @@
-"""Shared SED model preamble: log-mel frontend + ``bn0`` (counterpart of
-``sed_tpu/models/base.py``, eval path only).
+"""Shared SED model preamble: log-mel frontend, ``bn0`` and train-time
+augmentation (counterpart of ``sed_tpu/models/base.py``).
 
 The frontend is ``fused_logmel``: the CUDA kernel for a tensor on the
 GPU, its plain PyTorch version for a tensor on the CPU.  ``bn0`` is a
 BatchNorm over the mel bins (axis 2 of the reference's (B, T, F, 1)).
-Train-time augmentation (SpecAugment, mixup, timeshift) is not ported
-yet, so a forward in training mode raises.
+In training mode ``bn0`` uses batch statistics and the augmentations
+run in ``sed_tpu``'s order: SpecAugment, then mixup (timeshift first
+when both are on) or timeshift alone.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
+from sed_tpu_torch.augment import functional as aug
+from sed_tpu_torch.models.blocks import BatchNorm
 from sed_tpu_torch.ops.logmel_kernel import fused_logmel
 
 
@@ -29,13 +34,25 @@ class SedFeatureBase(nn.Module):
             raise NotImplementedError(
                 f'feature_type {feature_type!r}: only logmel is ported')
         self.cfg = cfg
-        self.bn0 = nn.BatchNorm1d(cfg.mel_bins, eps=1e-5, momentum=0.1)
+        self.bn0 = BatchNorm(cfg.mel_bins)
 
-    def compute_features(self, wav: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                'training-mode forward (augmentation, batch statistics) '
-                'is not ported yet: call .eval() first')
+    def compute_features(self, wav: torch.Tensor,
+                         mixup_lambda: Optional[torch.Tensor] = None,
+                         timeshift: bool = False, spec_augment: bool = False,
+                         generator: Optional[torch.Generator] = None
+                         ) -> torch.Tensor:
         x = fused_logmel(wav, self.cfg)                     # (B, T, F)
         x = self.bn0(x.transpose(1, 2)).transpose(1, 2)
-        return x[:, None]                                   # (B, 1, T, F)
+        x = x[:, None]                                      # (B, 1, T, F)
+        if not self.training:
+            return x
+        if spec_augment:
+            x = aug.spec_augment(x, generator)
+        if mixup_lambda is not None:
+            if timeshift:
+                x = aug.do_mixup_timeshift(x, mixup_lambda, generator)
+            else:
+                x = aug.do_mixup(x, mixup_lambda)
+        elif timeshift:
+            x = aug.do_timeshift(x, generator)
+        return x

@@ -6,15 +6,67 @@ GRU and attention head take the JAX layout (B, T, C).  The BiGRU is
 ``nn.GRU``, whose gate layout (r, z, n) and ``n = tanh(W_in x + b_in +
 r * (W_hn h + b_hn))`` are what ``sed_tpu`` stores and computes.
 ``MultiHead`` is the reference's one-block self-attention.
+
+``BatchNorm`` keeps flax's running statistics in training mode, and
+``init_weights`` draws a fresh model from ``sed_tpu``'s initialisers.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.nn.modules.batchnorm import _BatchNorm
+
+
+class BatchNorm(_BatchNorm):
+    """BatchNorm over dim 1 of (B, C, ...), for ``bn0`` and the ConvBlocks.
+
+    Eval mode is ``nn.BatchNorm``'s.  In training mode the output is
+    normalised with the batch mean and biased variance, as
+    ``nn.BatchNorm`` does, but the running variance moves toward the
+    *biased* batch variance, as flax's does; torch's moves toward the
+    unbiased one, n / (n - 1) larger.  Momentum 0.1 here is flax's 0.9:
+    ``running = 0.9 running + 0.1 batch``.
+    """
+
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 momentum: float = 0.1):
+        super().__init__(num_features, eps=eps, momentum=momentum)
+
+    def _check_input_dim(self, input: torch.Tensor) -> None:
+        if input.dim() < 2:
+            raise ValueError(f'expected (B, C, ...), got {input.dim()}D')
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                           self.eps)
+        with torch.no_grad():
+            dims = [0] + list(range(2, x.dim()))
+            var, mean = torch.var_mean(x, dim=dims, correction=0)
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+            self.num_batches_tracked.add_(1)
+        return out
+
+
+def dropout(x: torch.Tensor, rate: float, generator=None) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability 1 - rate (a uniform draw
+    below it, from ``generator``), kept values scaled by 1 / (1 - rate)."""
+    if rate == 0.0:
+        return x
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+        < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
+                                                       device=x.device))
 
 
 def roundup(x: int) -> int:
@@ -41,10 +93,10 @@ class ConvBlock(nn.Module):
         super().__init__()
         self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1,
                                bias=False)
-        self.bn1 = nn.BatchNorm2d(out_channels, eps=1e-5, momentum=0.1)
+        self.bn1 = BatchNorm(out_channels)
         self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1,
                                bias=False)
-        self.bn2 = nn.BatchNorm2d(out_channels, eps=1e-5, momentum=0.1)
+        self.bn2 = BatchNorm(out_channels)
 
     def forward(self, x: torch.Tensor, pool_size=(2, 2),
                 pool_type: str = 'avg') -> torch.Tensor:
@@ -103,23 +155,27 @@ class MultiHead(nn.Module):
     8 heads of d_k = d_v = 64, output projection, ReLU.
 
     Reference quirk kept (``sed_tpu/models/blocks.py:241-279``): no
-    residual connection and no layer norm.  The dropouts are inert in
-    eval, the only mode ported.  The attention is plain fp32 ``matmul``
-    and ``softmax``, as ``sed_tpu``'s einsum; not
-    ``F.scaled_dot_product_attention``, whose CUDA backend is picked at
-    run time and sums in another order.
+    residual connection and no layer norm.  In training mode dropout
+    ``attn_dropout_rate`` hits the attention weights and ``dropout_rate``
+    the output projection, with masks from the caller's generator.  The
+    attention is plain fp32 ``matmul`` and ``softmax``, as ``sed_tpu``'s
+    einsum; not ``F.scaled_dot_product_attention``, whose CUDA backend is
+    picked at run time and sums in another order.
     """
 
     n_head, d_k, d_v = 8, 64, 64
 
-    def __init__(self, d_model: int):
+    def __init__(self, d_model: int, dropout_rate: float = 0.2,
+                 attn_dropout_rate: float = 0.1):
         super().__init__()
+        self.dropout_rate = dropout_rate
+        self.attn_dropout_rate = attn_dropout_rate
         self.w_qs = nn.Linear(d_model, self.n_head * self.d_k)
         self.w_ks = nn.Linear(d_model, self.n_head * self.d_k)
         self.w_vs = nn.Linear(d_model, self.n_head * self.d_v)
         self.fc = nn.Linear(self.n_head * self.d_v, d_model)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
         b, t, _ = x.shape
         nh, dk, dv = self.n_head, self.d_k, self.d_v
         q = self.w_qs(x).view(b, t, nh, dk).transpose(1, 2)   # (B,H,T,dk)
@@ -127,5 +183,74 @@ class MultiHead(nn.Module):
         v = self.w_vs(x).view(b, t, nh, dv).transpose(1, 2)
         attn = torch.softmax(
             torch.matmul(q, k.transpose(2, 3)) / math.sqrt(dk), dim=-1)
+        if self.training:
+            attn = dropout(attn, self.attn_dropout_rate, generator)
         out = torch.matmul(attn, v).transpose(1, 2).reshape(b, t, nh * dv)
-        return F.relu(self.fc(out))
+        out = self.fc(out)
+        if self.training:
+            out = dropout(out, self.dropout_rate, generator)
+        return F.relu(out)
+
+
+# ---------------------------------------------------------------------------
+# fresh initialisation (``sed_tpu``'s initialisers)
+# ---------------------------------------------------------------------------
+
+
+def _xavier_normal_(w: torch.Tensor, generator) -> None:
+    """flax ``xavier_normal``: variance_scaling(1, fan_avg,
+    'truncated_normal'), a normal truncated at two standard deviations
+    whose scale is raised to keep the variance 2 / (fan_in + fan_out)."""
+    fan_in, fan_out = nn.init._calculate_fan_in_and_fan_out(w)
+    std = math.sqrt(2.0 / (fan_in + fan_out)) / .87962566103423978
+    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                          generator=generator)
+
+
+def _init_gru(gru: nn.GRU, generator) -> None:
+    """Per gate: W_ih uniform(+-sqrt(3 / D)); W_hh's r and z rows
+    uniform(+-sqrt(3 / H)), its n rows orthogonal; biases 0
+    (``sed_tpu/models/blocks.py:116-132``)."""
+    h = gru.hidden_size
+    for suffix in ('_l0', '_l0_reverse'):
+        w_ih = getattr(gru, 'weight_ih' + suffix)
+        w_hh = getattr(gru, 'weight_hh' + suffix)
+        bound = np.sqrt(3.0 / w_ih.shape[1])
+        nn.init.uniform_(w_ih, -bound, bound, generator=generator)
+        bound = np.sqrt(3.0 / h)
+        nn.init.uniform_(w_hh[:2 * h], -bound, bound, generator=generator)
+        nn.init.orthogonal_(w_hh[2 * h:], generator=generator)
+        nn.init.zeros_(getattr(gru, 'bias_ih' + suffix))
+        nn.init.zeros_(getattr(gru, 'bias_hh' + suffix))
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, generator: torch.Generator = None
+                 ) -> nn.Module:
+    """Draw a fresh model from ``sed_tpu``'s distributions: xavier-uniform
+    conv, ``att``, ``cla`` and ``fc`` kernels; the GRU's per-gate uniform
+    and orthogonal n gate; normal(sqrt(2 / (d_model + d_k))) Q, K, V and a
+    xavier-normal MultiHead ``fc``; zero biases; BatchNorm scale 1, bias
+    0, running mean 0 and variance 1."""
+    in_multihead = {id(sub) for mh in model.modules()
+                    if isinstance(mh, MultiHead) for sub in mh.modules()}
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.reset_parameters()
+        elif isinstance(m, nn.GRU):
+            _init_gru(m, generator)
+        elif isinstance(m, MultiHead):
+            d_model = m.w_qs.in_features
+            for lin, d in ((m.w_qs, m.d_k), (m.w_ks, m.d_k), (m.w_vs, m.d_v)):
+                nn.init.normal_(lin.weight, 0.0,
+                                float(np.sqrt(2.0 / (d_model + d))),
+                                generator=generator)
+                nn.init.zeros_(lin.bias)
+            _xavier_normal_(m.fc.weight, generator)
+            nn.init.zeros_(m.fc.bias)
+        elif isinstance(m, (nn.Conv2d, nn.Linear)) and \
+                id(m) not in in_multihead:
+            nn.init.xavier_uniform_(m.weight, generator=generator)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+    return model

@@ -1,16 +1,19 @@
 """CNN [+ BiGRU | + MultiHead] + {max, avg, att} head SED models
 (counterpart of ``sed_tpu/models/zoo.py``).
 
-``forward(wav) -> {'framewise_output' (B, T', C), 'clipwise_output'
+``forward(wav, mixup_lambda=None, timeshift=False, spec_augment=False,
+generator=None) -> {'framewise_output' (B, T', C), 'clipwise_output'
 (B, C), 'embedding'}`` at 100 output frames per second, the reference's
-API.  Submodule names follow the flax parameter tree (``bn0``,
+API.  The augmentation flags and the dropouts act in training mode
+only, with every draw from ``generator``; with mixup the batch halves.
+Submodule names follow the flax parameter tree (``bn0``,
 ``conv_block1``.., ``gru``, ``multihead``, ``att_block``, ``fc``), so
 ``compat/from_flax.py`` maps a checkpoint leaf by leaf.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -54,9 +57,13 @@ class CnnSed(SedFeatureBase):
         else:
             self.fc = nn.Linear(in_ch, classes_num)
 
-    def forward(self, wav: torch.Tensor) -> dict:
+    def forward(self, wav: torch.Tensor,
+                mixup_lambda: Optional[torch.Tensor] = None,
+                timeshift: bool = False, spec_augment: bool = False,
+                generator: Optional[torch.Generator] = None) -> dict:
         interpolate_ratio = 2 ** (len(self.conv_channels) - 1)
-        x = self.compute_features(wav)                       # (B,1,T,F)
+        x = self.compute_features(wav, mixup_lambda, timeshift,
+                                  spec_augment, generator)   # (B,1,T,F)
         for i in range(len(self.conv_channels)):
             last = i == len(self.conv_channels) - 1
             x = getattr(self, f'conv_block{i + 1}')(
@@ -66,7 +73,7 @@ class CnnSed(SedFeatureBase):
         if self.temporal == 'gru':
             x = self.gru(x)
         elif self.temporal == 'multihead':
-            x = self.multihead(x)
+            x = self.multihead(x, generator)
 
         if self.head == 'att':
             clipwise, _norm_att, cla = self.att_block(x)

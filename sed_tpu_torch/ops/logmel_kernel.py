@@ -120,7 +120,10 @@ def fused_logmel(wav: torch.Tensor, cfg) -> torch.Tensor:
     """(B, samples) -> (B, T, mel_bins) log-mel, through the CUDA kernel
     for a CUDA tensor and ``logmel_plain`` for a CPU tensor.
 
-    ``fused_logmel.launches`` counts kernel launches.
+    ``fused_logmel.launches`` counts kernel launches.  The kernel has no
+    backward (nor has the Pallas kernel), and a ctypes call is invisible
+    to autograd, so a CUDA input that requires grad raises instead of
+    coming back silently detached.
     """
     if cfg.top_db is not None:
         raise ValueError('fused_logmel does not implement the top_db clamp; '
@@ -129,6 +132,10 @@ def fused_logmel(wav: torch.Tensor, cfg) -> torch.Tensor:
         return logmel_plain(wav, cfg)
     if wav.device.type != 'cuda':
         raise ValueError(f'fused_logmel: unsupported device {wav.device}')
+    if wav.requires_grad:
+        raise ValueError('fused_logmel has no backward: the CUDA kernel '
+                         'would cut the graph of a waveform that requires '
+                         'grad')
     if wav.dtype != torch.float32 or wav.dim() != 2:
         raise ValueError(f'fused_logmel wants (B, samples) float32, got '
                          f'{tuple(wav.shape)} {wav.dtype}')

@@ -70,6 +70,14 @@ class Workspace:
     def predictions_path(self, name: str, create: bool = False) -> str:
         return os.path.join(self.dir('predictions', create), name)
 
+    def statistics_path(self, feature_type: str, quality: str,
+                        create: bool = False) -> str:
+        return os.path.join(self.dir('statistics', create),
+                            f'statistics_{feature_type}_{quality}.pkl')
+
+    def logs_dir(self, create: bool = False) -> str:
+        return self.dir('logs', create)
+
     def predict_results_dir(self, create: bool = False) -> str:
         path = os.path.join(self.root, 'predict_results')
         if create:

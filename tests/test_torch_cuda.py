@@ -252,3 +252,106 @@ def test_cuda_evaluator_refuses_tf32_and_matches_cpu(device):
     assert got['framewise_output'].shape == (3, 1000, 25)
     np.testing.assert_allclose(got['framewise_output'],
                                want['framewise_output'], atol=1e-4)
+
+
+@pytest.mark.parametrize('batch', [192, 64])
+def test_kernel_at_the_training_shapes(device, batch):
+    """The weak (192) and strong (64) batches of ``main_strong train
+    --batch_size 32`` with mixup: clips of 10 s at 16 kHz, 1001 frames."""
+    cfg = config.AUDIO_16K
+    x = torch.from_numpy(_rows(cfg, batch, 10.0, seed=batch)).to(device)
+    before = fused_logmel.launches
+    got = fused_logmel(x, cfg)
+    assert fused_logmel.launches == before + 1
+    assert got.shape == (batch, 1001, 64)
+    torch.testing.assert_close(got, logmel_plain(x, cfg), **TOL)
+
+
+def test_kernel_refuses_a_waveform_that_requires_grad(device):
+    """The kernel has no backward: a CUDA input that requires grad raises
+    instead of coming back cut from its graph."""
+    x = torch.zeros(2, 16000, device=device, requires_grad=True)
+    with pytest.raises(ValueError, match='no backward'):
+        fused_logmel(x, config.AUDIO_16K)
+    assert fused_logmel(x.detach(), config.AUDIO_16K).shape == (2, 101, 64)
+
+
+def test_train_step_gpu_matches_cpu(device):
+    """Three joint steps (mixup on, augmentation off) of a narrow CnnSed
+    from the same fresh weights on the card and on the CPU: losses within
+    rtol 1e-4; parameters as ``tests/test_torch_train.py``'s three-step
+    test holds them (AMSGrad turns float noise of near-zero gradients
+    into moves of up to ~lr a step): max < 3 x 2 lr, mean < 1e-5, under
+    5% of the elements beyond 1e-5; BatchNorm buffers within 5e-4
+    (relative above 1); the log-mel kernel launched twice a step."""
+    from sed_tpu_torch import losses
+    from sed_tpu_torch.models.zoo import CnnSed
+    from sed_tpu_torch.train.state import create_train_state
+    from sed_tpu_torch.train.step import make_train_step
+    cfg = config.AUDIO_16K
+    rng = np.random.RandomState(0)
+    lam = lambda n: np.repeat(rng.rand(n // 2), 2).astype(np.float32)  # noqa
+    batches = []
+    for _ in range(3):
+        wav = (rng.uniform(-0.3, 0.3, (6, 16000)) * 32767).astype(np.int16)
+        weak = {'waveform': wav[:4],
+                'target': (rng.rand(4, 25) > 0.7).astype(np.float32),
+                'mixup_lambda': lam(4)}
+        strong = {'waveform': wav[4:],
+                  'strong_target': (rng.rand(2, 100, 25) > 0.8)
+                  .astype(np.float32), 'mixup_lambda': lam(2)}
+        batches.append((weak, strong))
+    states, steps = {}, {}
+    for dev in ('cpu', device):
+        model = CnnSed(cfg, conv_channels=(8, 16, 16, 32), temporal='gru',
+                       gru_hidden=16, pad_to_roundup=True)
+        states[dev] = create_train_state(model, 1e-3,
+                                         torch.Generator().manual_seed(0))
+        model.to(dev)
+        steps[dev] = make_train_step(model, states[dev].optimizer,
+                                     losses.clip_bce, losses.frame_bce,
+                                     mixup=True, timeshift=False,
+                                     spec_augment=False)
+    before = fused_logmel.launches
+    for weak, strong in batches:
+        got = {}
+        for dev in states:
+            tw = {k: torch.from_numpy(v).to(dev) for k, v in weak.items()}
+            ts = {k: torch.from_numpy(v).to(dev) for k, v in strong.items()}
+            got[dev] = steps[dev](tw, [ts], None)['loss'].item()
+        assert abs(got[device] - got['cpu']) <= 1e-4 * got['cpu']
+    assert fused_logmel.launches == before + 6
+    diffs = []
+    cpu_state = states['cpu'].model.state_dict()
+    for k, v in states[device].model.state_dict().items():
+        w = cpu_state[k].double()
+        d = (v.double().cpu() - w).abs()
+        if 'running' in k:
+            assert (d / w.abs().clamp_min(1.0)).max() < 5e-4, k
+        elif not k.endswith('num_batches_tracked'):
+            diffs.append(d.reshape(-1))
+    d = torch.cat(diffs)
+    print(f'GPU - CPU after 3 steps: max {d.max().item()!r} mean '
+          f'{d.mean().item()!r} share > 1e-5 '
+          f'{(d > 1e-5).double().mean().item()!r}')
+    assert d.max() < 3 * 2e-3 and d.mean() < 1e-5
+    assert (d > 1e-5).double().mean() < 0.05
+
+
+def test_kernel_keeps_non_finite_frames_non_finite(device):
+    """An inf or NaN sample makes the frames that hold it non-finite, as
+    in the plain version and the Pallas kernel (``jnp.maximum`` keeps a
+    NaN), not the -100 dB floor: a bad batch must look bad to the
+    loss-scaled step.  Other frames are unchanged."""
+    cfg = config.AUDIO_16K
+    wav = _rows(cfg, 3, 1.0, seed=9)
+    clean = torch.from_numpy(wav.copy()).to(device)
+    wav[0, 8000] = np.inf
+    wav[1, 3000] = np.nan
+    x = torch.from_numpy(wav).to(device)
+    got, want = fused_logmel(x, cfg), logmel_plain(x, cfg)
+    bad = ~torch.isfinite(want).all(-1)
+    assert bad[0].any() and bad[1].any() and not bad[2].any()
+    assert torch.equal(~torch.isfinite(got).all(-1), bad)
+    torch.testing.assert_close(got[~bad], fused_logmel(clean, cfg)[~bad],
+                               rtol=0, atol=0)

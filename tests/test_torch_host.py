@@ -252,7 +252,7 @@ names = [m.name for m in pkgutil.walk_packages(sed_tpu_torch.__path__,
                                                'sed_tpu_torch.')]
 for name in names:
     importlib.import_module(name)
-for cli in ('predict', 'main_strong', 'optimize_thresholds'):
+for cli in ('predict', 'main_strong', 'optimize_thresholds', 'main'):
     sys.argv = [cli, '--help']
     try:
         runpy.run_module('sed_tpu_torch.cli.' + cli, run_name='__main__')
@@ -267,9 +267,9 @@ print('MODULES', len(names))
 
 
 def test_port_imports_nothing_of_the_jax_package():
-    """Every module of sed_tpu_torch imports, and the three CLIs answer
-    --help, in a process where sed_tpu, jax, jaxlib, flax, optax and
-    orbax cannot be imported."""
+    """Every module of sed_tpu_torch imports (the training modules
+    included), and the four CLIs answer --help, in a process where
+    sed_tpu, jax, jaxlib, flax, optax and orbax cannot be imported."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, '-c', _GUARD_SCRIPT], cwd=REPO,
                           env=env, capture_output=True, text=True,
@@ -277,7 +277,12 @@ def test_port_imports_nothing_of_the_jax_package():
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert 'usage:' in proc.stdout
     n = int(proc.stdout.split('MODULES')[1].split()[0])
-    assert n >= 30, proc.stdout[-500:]
+    assert n >= 40, proc.stdout[-500:]
+    for name in ('augment.functional', 'losses', 'train.state', 'train.step',
+                 'train.checkpoint', 'train.prefetch', 'utils.statistics',
+                 'utils.logging_utils', 'cli.main'):
+        assert os.path.isfile(os.path.join(
+            REPO, 'sed_tpu_torch', *name.split('.')) + '.py'), name
     assert not os.path.exists(os.path.join(REPO, 'sed_tpu_torch',
                                            '_host.py'))
 
@@ -306,3 +311,125 @@ def test_entry_points_default_to_the_card(tmp_path):
         SedInferenceEngine(model, config.AUDIO_16K)
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         Evaluator(model)
+
+
+# ---------------------------------------------------------------------------
+# the training path's host copies
+# ---------------------------------------------------------------------------
+
+
+def test_mixup_generator_stream_equals_sed_tpu():
+    from sed_tpu.augment.functional import MixupGenerator as JaxMixup
+    from sed_tpu_torch.augment.functional import MixupGenerator
+    a, b = MixupGenerator(1.0), JaxMixup(1.0)
+    for n in (192, 64, 64, 6, 2):
+        assert np.array_equal(a.get_lambda(n), b.get_lambda(n))
+
+
+def _h5(path, n, samples=16000, seed=0):
+    import h5py
+    rng = np.random.RandomState(seed)
+    with h5py.File(path, 'w') as hf:
+        hf.create_dataset('audio_name', data=np.array(
+            [f'c{i}.wav'.encode() for i in range(n)], dtype='S20'))
+        hf.create_dataset('waveform', data=(rng.uniform(-0.5, 0.5, (
+            n, samples)) * 32767).astype(np.int16))
+        hf.create_dataset('target', data=(rng.rand(n, 25) > 0.7)
+                          .astype(np.float32))
+        hf.create_dataset('strong_target', data=(rng.rand(n, 16, 25) > 0.8)
+                          .astype(np.float32))
+    return str(path)
+
+
+@pytest.mark.parametrize('n,batch', [(7, 3), (5, 5), (4, 6)])
+def test_train_sampler_stream_equals_sed_tpu(tmp_path, n, batch):
+    """The reference's self-composed permutation stream, reshuffles
+    mid-batch included, for 12 batches."""
+    from sed_tpu.data.dataset import TrainSampler as JaxTrainSampler
+    from sed_tpu_torch.data.dataset import TrainSampler, cycle_iteration
+    path = _h5(tmp_path / 'x.h5', n)
+    got, want = iter(TrainSampler(path, batch)), iter(
+        JaxTrainSampler(path, batch))
+    for _ in range(12):
+        assert next(got) == next(want)
+    loader = cycle_iteration([1, 2])
+    assert [next(loader) for _ in range(5)] == [1, 2, 1, 2, 1]
+
+
+@pytest.mark.parametrize('wire', ['int16', 'mulaw8', 'q6', 'adpcm4', None])
+@pytest.mark.parametrize('workers', [1, 3])
+def test_training_loader_batches_equal_sed_tpu(tmp_path, wire, workers):
+    """``AudiosetDataset(dequantize=False, wire=...)`` rows through the
+    worker-pool loader: the same batches, in the same order, bit for bit
+    (sed_tpu's adpcm4 encoder is native where it builds; the port's copy
+    is its numpy oracle)."""
+    from sed_tpu.data.dataset import (AudiosetDataset as JaxDataset,
+                                      DataLoader as JaxLoader,
+                                      TrainSampler as JaxTrainSampler)
+    from sed_tpu_torch.data.dataset import (AudiosetDataset, DataLoader,
+                                            TrainSampler)
+    path = _h5(tmp_path / 'x.h5', 6)
+    kw = {} if wire is None else dict(dequantize=False, wire=wire)
+    got = iter(DataLoader(AudiosetDataset(**kw), TrainSampler(path, 4),
+                          num_workers=workers))
+    want = iter(JaxLoader(JaxDataset(**kw), JaxTrainSampler(path, 4),
+                          num_workers=workers))
+    for _ in range(4):
+        g, w = next(got), next(want)
+        assert g.keys() == w.keys()
+        for k in g:
+            assert g[k].dtype == w[k].dtype and np.array_equal(g[k], w[k]), k
+
+
+def test_statistics_container_equals_sed_tpu(tmp_path):
+    """Append, dump and the truncating resume give sed_tpu's pickles."""
+    from sed_tpu.utils.statistics import StatisticsContainer as JaxStats
+    from sed_tpu_torch.utils.statistics import StatisticsContainer
+    dumps = []
+    for cls, name in ((StatisticsContainer, 'port'), (JaxStats, 'jax')):
+        path = str(tmp_path / name / 'statistics.pkl')
+        c = cls(path)
+        for it in (0, 2, 4):
+            c.append('valid', it, {'clipwise_ap': np.arange(3.0) * it})
+            c.append('test', it, {'er': it / 10})
+        c.dump()
+        c.load_state_dict(2)
+        dumps.append((open(path, 'rb').read(), c.statistics_dict))
+    assert dumps[0][0] == dumps[1][0]
+    got, want = dumps[0][1], dumps[1][1]
+    assert got.keys() == want.keys()
+    for k in got:
+        assert [s['iteration'] for s in got[k]] == \
+            [s['iteration'] for s in want[k]]
+    assert [s['iteration'] for s in got['valid']] == [0, 2]
+
+
+def test_logging_and_workspace_copies_equal_sed_tpu(tmp_path):
+    """``create_logging``'s numbered files and ``count_parameters``'s
+    table total (the port's over an nn.Module, sed_tpu's over the flax
+    tree of the same model); the statistics and logs paths."""
+    import logging
+    import jax
+    from sed_tpu.models.registry import get_model as jax_get_model
+    from sed_tpu.utils import logging_utils as jax_logging
+    from sed_tpu_torch.models.registry import get_model
+    from sed_tpu_torch.utils import logging_utils
+    for mod, name in ((logging_utils, 'port'), (jax_logging, 'jax')):
+        d = str(tmp_path / name)
+        mod.create_logging(d)
+        mod.create_logging(d)
+        assert sorted(os.listdir(d)) == ['0000.log', '0001.log']
+    logging.getLogger('').handlers.clear()
+    cfg = config.AUDIO_16K
+    narrow = dict(conv_channels=(8, 16, 16, 32), gru_hidden=16)
+    jm = jax_get_model('Cnn_9layers_Gru_FrameAtt', cfg, **narrow)
+    variables = jax.jit(lambda k: jm.init(
+        {'params': k}, np.zeros((1, 16000), np.float32)))(
+            jax.random.PRNGKey(0))
+    assert logging_utils.count_parameters(get_model(
+        'Cnn_9layers_Gru_FrameAtt', cfg, **narrow)) == \
+        jax_logging.count_parameters(variables['params'])
+    ws, jws = Workspace(root='r'), JaxWorkspace(root='r')
+    assert ws.statistics_path('logmel', '16k') == \
+        jws.statistics_path('logmel', '16k')
+    assert ws.logs_dir() == jws.logs_dir()

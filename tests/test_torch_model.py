@@ -215,13 +215,19 @@ def test_registry_lists_only_cnn_sed_without_multihead():
 
 
 def test_multihead_and_train_mode_raise():
-    """MultiHead is ported now; an unknown temporal module and a
-    training-mode forward still raise."""
+    """MultiHead is ported now; an unknown temporal module still raises.
+    The training-mode forward is ported too (since the training slice):
+    it runs on batch statistics and moves bn0's running statistics."""
     assert isinstance(CnnSed(AUDIO_16K, temporal='multihead').multihead,
                       blocks.MultiHead)
     with pytest.raises(ValueError, match='temporal'):
         CnnSed(AUDIO_16K, temporal='conformer')
     model = get_model('Cnn_9layers_FrameAtt', AUDIO_8K,
                       conv_channels=(4, 4, 4, 4)).train()
-    with pytest.raises(NotImplementedError, match='eval'):
-        model(torch.zeros(1, 8000))
+    wav = torch.from_numpy(np.random.RandomState(0).uniform(
+        -0.3, 0.3, (2, 8000)).astype(np.float32))
+    out = model(wav)
+    assert torch.isfinite(out['framewise_output']).all()
+    assert model.bn0.num_batches_tracked == 1
+    assert not torch.equal(model.bn0.running_mean,
+                           torch.zeros_like(model.bn0.running_mean))

@@ -74,7 +74,7 @@ def test_multihead_matches_flax():
             .astype(np.float32)
     want = np.asarray(jm.apply(v, jnp.asarray(x)))
     holder = torch.nn.Module()
-    holder.multihead = blocks.MultiHead(48)
+    holder.multihead = blocks.MultiHead(48).eval()     # flax's train=False
     from_flax.load_variables(holder, {'params': {'multihead': v['params']}})
     with torch.no_grad():
         got = holder.multihead(torch.from_numpy(x)).numpy()
