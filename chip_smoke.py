@@ -73,9 +73,32 @@ checks it against the same engine on the CPU.  Phases:
     scale halved); the Transformer (dropout on) for 5 steps; the
     trained model through ``save_best_checkpoint`` ->
     ``cli/common.checkpoint_path`` -> ``compat/from_flax.load_checkpoint``
-    -> ``predict_clips``, events and XML equal to the in-memory model's.
+    -> ``predict_clips``, events and XML equal to the in-memory model's;
+14. the other model families, at full width and depth on seeded weights
+    (``compat.bench_weights.seeded_model``): for each of the nine names
+    (Conformer att / avg / 14-layer, the two token-pooling Conformers,
+    VGGish att / GRU-att / avg, CNN14) ``predict_clips`` on the 64 int16
+    clips, GPU against CPU: framewise and clipwise within 1e-4 (logits:
+    of max(1, |x|)), events compared as multisets with the differing
+    ones counted and bounded (seeded weights leave many probabilities
+    at a threshold; XML identical where the events are), clips/s over
+    512 clips; ``Cnn_9layers_Conformer_FrameAtt`` through
+    ``predict_clips_windowed`` at [0.5, 6] on 16 clips of 10 s and
+    ``StreamingSed`` on 30 s, GPU against CPU, and a profiler breakdown
+    of one serving batch by op group (conv stack, linear layers,
+    attention products, softmax, LayerNorm, depthwise conv, BatchNorm,
+    pooling, log-mel), also for the 497-token ``Cnn_9layers_Conformer``;
+    ``Cnn_9layers_Conformer_FrameAtt`` (BCE losses) and
+    ``Cnn_7layers_Conformer`` (logits losses) trained at phase 13's
+    batch for 12 steps (steps/s, peak memory, finite falling losses),
+    one step GPU against CPU with dropout rates 0 and augmentation off
+    under phase 13's bounds, and ``iter_N.pth`` -> ``load_checkpoint``
+    -> ``predict_clips`` equal to the in-memory model.
 
-Phases 4, 7, 8, 9, 10, 11, 12 and 13 drive the main paths: each sets the
+``python3 chip_smoke.py --families-only`` runs phases 1, 2 and 14 alone
+and prints no result line (for work on that phase).
+
+Phases 4, 7, 8, 9, 10, 11, 12, 13 and 14 drive the main paths: each sets the
 kernel's launch count to 0 just before and reads it just after, and
 fails if the kernel was not launched.  The script imports nothing of JAX
 and nothing of the JAX package ``sed_tpu``, and checks so at the end.
@@ -425,13 +448,15 @@ STATE_TOL = {1: dict(param_mean=1e-6, share=1e-2, bn=1e-5, moments=0.05),
              3: dict(param_mean=1e-5, share=0.2, bn=2e-2, moments=0.1)}
 
 
-def check_state_diff(diff: dict, tag: str) -> None:
-    """``state_diff`` within ``STATE_TOL`` for the states' step count;
-    parameters never more than 2 lr a step apart."""
-    print(f'[13] {tag}: {json.dumps(diff)}')
+def check_state_diff(diff: dict, tag: str, phase: int = 13,
+                     **tol_override) -> None:
+    """``state_diff`` within ``STATE_TOL`` for the states' step count
+    (a bound in ``tol_override`` replaces its one); parameters never more
+    than 2 lr a step apart."""
+    print(f'[{phase}] {tag}: {json.dumps(diff)}')
     steps = diff['steps'][0]
     assert steps == diff['steps'][1], diff
-    tol = STATE_TOL[steps]
+    tol = dict(STATE_TOL[steps], **tol_override)
     assert diff['param_max'] < steps * PARAM_MAX_DIFF_STEPS * 1e-3, diff
     assert diff['param_mean'] < tol['param_mean'], diff
     assert diff['param_share_1e-5'] < tol['share'], diff
@@ -451,41 +476,78 @@ TRAIN_OP_GROUPS = (
     ('optimizer', ('aten::_foreach_',)))
 
 
-def profile_train_step(step_fn, batch, generator, tag: str) -> None:
-    """Profiler breakdown of one train step: wall, device kernel time,
-    the device's idle share, device time by group (``TRAIN_OP_GROUPS``,
-    the rest as 'other') and the top kernels."""
+# the same for a serving forward of the Conformer family: torch.matmul of
+# 4-D tensors is aten::bmm (the attention products), nn.Linear aten::addmm
+# or aten::mm
+SERVE_OP_GROUPS = (
+    ('conv stack', ('aten::cudnn_convolution',)),
+    ('depthwise conv', ('aten::_conv_depthwise2d',)),
+    ('BatchNorm', ('aten::cudnn_batch_norm', 'aten::native_batch_norm')),
+    ('avg pool', ('aten::avg_pool2d',)),
+    ('linear layers', ('aten::addmm', 'aten::mm')),
+    ('attention products', ('aten::bmm',)),
+    ('softmax', ('aten::_softmax',)),
+    ('LayerNorm', ('aten::native_layer_norm',)))
+
+
+def profile_by_group(fn, groups, tag: str, what: str, top: int = 15) -> dict:
+    """Profiler breakdown of one ``fn()``: wall, device kernel time, the
+    device's idle share, device time by group (the kernels each aten op
+    of ``groups`` launched, log-mel by kernel name, the rest as 'other')
+    and the top kernels.  Returns the groups' device time in us.
+
+    ``fn`` runs twice inside one trace and only the second call is
+    reported (the events that start after its marker): a profile taken
+    after earlier ones in the same process lost the first kernels of its
+    trace (log-mel, ``bn0``, the first convolution)."""
+    import collections
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
+    marker = 'chip_smoke::measured'
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        fn()
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step_fn(batch[0], batch[1], generator)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    events = prof.key_averages()
-    rows = sorted((e for e in events if e.device_type == DeviceType.CUDA),
-                  key=lambda e: -e.self_device_time_total)
-    busy_us = sum(e.self_device_time_total for e in rows)
+        with record_function(marker):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.events()
+    start = next(e for e in events if e.name == marker).time_range.start
+    events = [e for e in events if e.time_range.start >= start]
+    kernels = collections.defaultdict(lambda: [0.0, 0])   # name: us, count
+    for e in events:
+        # the marker itself comes back as a device annotation per stream
+        if e.device_type == DeviceType.CUDA and e.name != marker:
+            kernels[e.name][0] += e.self_device_time_total
+            kernels[e.name][1] += 1
+    rows = sorted(kernels.items(), key=lambda kv: -kv[1][0])
+    busy_us = sum(us for _, (us, _) in rows)
     by = {name: sum(e.device_time_total for e in events
                     if e.device_type == DeviceType.CPU
-                    and any(e.key == op or (op.endswith('_')
-                                            and e.key.startswith(op))
+                    and any(e.name == op or (op.endswith('_')
+                                             and e.name.startswith(op))
                             for op in ops))
-          for name, ops in TRAIN_OP_GROUPS}
-    by['log-mel'] = sum(e.self_device_time_total for e in rows
-                        if 'logmel' in e.key)
+          for name, ops in groups}
+    by['log-mel'] = sum(us for name, (us, _) in rows if 'logmel' in name)
     by['other'] = busy_us - sum(by.values())
-    print(f'[{tag}] profile of one train step: wall {wall_us:.0f} us, device '
+    print(f'[{tag}] profile of {what}: wall {wall_us:.0f} us, device '
           f'kernels {busy_us:.0f} us, device idle share '
           f'{1 - busy_us / wall_us:.3f}; device time by op (us): '
           + ', '.join(f'{k} {v:.0f}' for k, v in sorted(
               by.items(), key=lambda kv: -kv[1])))
-    for e in rows[:15]:
-        print(f'[{tag}]   {e.self_device_time_total:10.0f} us  '
-              f'x{e.count:<4d} {e.key[:90]}')
+    for name, (us, count) in rows[:top]:
+        print(f'[{tag}]   {us:10.0f} us  x{count:<4d} {name[:90]}')
+    by['busy'] = busy_us
+    return by
+
+
+def profile_train_step(step_fn, batch, generator, tag: str) -> None:
+    """``profile_by_group`` of one train step."""
+    profile_by_group(lambda: step_fn(batch[0], batch[1], generator),
+                     TRAIN_OP_GROUPS, tag, 'one train step')
 
 
 def train_phase(card: str, dev, cfg, pcm):
@@ -650,6 +712,290 @@ def train_phase(card: str, dev, cfg, pcm):
     return launches, out
 
 
+FAMILY_NAMES = (
+    'Cnn_9layers_Conformer_FrameAtt', 'Cnn_9layers_Conformer_FrameAvg',
+    'Cnn_14layers_Conformer_FrameAtt', 'Cnn_7layers_Conformer',
+    'Cnn_9layers_Conformer', 'VGGish_FrameAtt', 'VGGish_Gru_FrameAtt',
+    'VGGish_FrameAvg', 'Cnn14_DecisionLevelAtt')
+# the token-pooling Conformers put out logits
+LOGIT_MODELS = ('Cnn_7layers_Conformer', 'Cnn_9layers_Conformer')
+# Seeded weights leave many (clip, class) tracks with probabilities at a
+# threshold (CNN14's all lie within 0.02 of 0.5), where a float32
+# difference of 1e-6 between the card and the CPU moves an onset or
+# makes or drops an event.  So events are compared as multisets and the
+# share that differs is bounded.
+EVENT_DIFF_SHARE = 0.02
+
+
+def event_diff(a, b) -> tuple:
+    """(events of ``a`` and ``b`` that the other side lacks, events of
+    ``a``): per-clip event lists as multisets of (clip, label, onset,
+    offset)."""
+    import collections
+
+    def bag(per_clip):
+        return collections.Counter(
+            (i, e['event_label'], round(e['onset'], 4),
+             round(e['offset'], 4))
+            for i, evs in enumerate(per_clip) for e in evs)
+    ca, cb = bag(a), bag(b)
+    return (sum(((ca - cb) + (cb - ca)).values()), sum(ca.values()))
+
+
+def check_events(tag, got, want) -> str:
+    """Bounded ``event_diff`` of two per-clip event lists; the phrase to
+    print."""
+    differ, total = event_diff(got, want)
+    assert total > 0, f'{tag}: no events'
+    assert differ <= max(2, EVENT_DIFF_SHARE * total), \
+        f'{tag}: {differ} of {total} events differ between GPU and CPU'
+    return (f'{total} events identical to the CPU' if not differ else
+            f'{total} events, {differ} differ from the CPU (bound '
+            f'{max(2, int(EVENT_DIFF_SHARE * total))})')
+
+
+def zero_dropouts(model) -> int:
+    """Set every dropout rate of ``model`` (a float attribute with
+    'dropout' in its name) to 0; returns how many there were."""
+    n = 0
+    for m in model.modules():
+        for attr, value in list(vars(m).items()):
+            if 'dropout' in attr and isinstance(value, float):
+                setattr(m, attr, 0.0)
+                n += 1
+    return n
+
+
+def families_phase(card: str, dev, cfg, pcm) -> int:
+    """Phase 14; returns the kernel launches of its main-path runs."""
+    import argparse
+    import copy
+    import numpy as np
+    import torch
+    from sed_tpu_torch import losses as losses_lib
+    from sed_tpu_torch.bench_corpus import make_clips
+    from sed_tpu_torch.cli import common
+    from sed_tpu_torch.compat.bench_weights import seeded_model
+    from sed_tpu_torch.compat.from_flax import load_checkpoint
+    from sed_tpu_torch.ops.logmel_kernel import fused_logmel
+    from sed_tpu_torch.serve.engine import SedInferenceEngine, window_starts
+    from sed_tpu_torch.serve.streaming import StreamingSed
+    from sed_tpu_torch.train.checkpoint import save_best_checkpoint
+    from sed_tpu_torch.train.prefetch import device_prefetch
+    from sed_tpu_torch.train.state import create_train_state
+    from sed_tpu_torch.train.step import make_train_step
+    from sed_tpu_torch.utils.paths import Workspace
+    total_launches = 0
+    bench = np.concatenate([pcm] * 8)                      # 512 clips
+
+    def engines(name, **kw):
+        model = seeded_model(name, cfg, seed=0)
+        kw = dict(dict(batch_size=32), **kw)
+        return (SedInferenceEngine(copy.deepcopy(model), cfg, dev, **kw),
+                SedInferenceEngine(model, cfg, 'cpu', **kw))
+
+    # -- serving, each of the nine names ---------------------------------
+    kept = {}
+    for name in FAMILY_NAMES:
+        t0 = time.perf_counter()
+        gpu, cpu = engines(name)
+        fused_logmel.launches = 0
+        ev_gpu, xml_gpu = gpu.predict_clips(pcm)
+        launched = fused_logmel.launches
+        assert launched > 0, f'{name} did not launch the log-mel kernel'
+        total_launches += launched
+        ev_cpu, xml_cpu = cpu.predict_clips(pcm)
+        events = check_events(name, ev_gpu, ev_cpu)
+        if ev_gpu == ev_cpu:
+            assert xml_gpu == xml_cpu, f'{name}: XML differs, events do not'
+        fw_gpu, cw_gpu = gpu.infer_framewise(pcm)
+        fw_cpu, cw_cpu = cpu.infer_framewise(pcm)
+        assert fw_gpu.shape == fw_cpu.shape == (64, gpu._out_frames, 25)
+        assert np.isfinite(fw_gpu).all() and np.isfinite(cw_gpu).all()
+        scale = (lambda x: np.maximum(1.0, np.abs(x))) \
+            if name in LOGIT_MODELS else (lambda x: 1.0)
+        fw_err = float((np.abs(fw_gpu - fw_cpu) / scale(fw_cpu)).max())
+        cw_err = float((np.abs(cw_gpu - cw_cpu) / scale(cw_cpu)).max())
+        rates, _ = clips_per_s(gpu, bench)
+        print(f'[14] {name} predict_clips on {card}: 64 clips, '
+              f'{gpu._out_frames} frames a clip, {events}, log-mel kernel '
+              f'launches {launched}; max |framewise gpu - cpu| = {fw_err!r}, '
+              f'clipwise {cw_err!r}'
+              + (' (logits, over max(1, |x|))' if name in LOGIT_MODELS
+                 else '')
+              + f'; 512 int16 clips at batch 32: '
+              f'{[round(r, 1) for r in rates]} clips/s (3 runs); '
+              f'{time.perf_counter() - t0:.1f} s for the name')
+        assert fw_err <= FRAMEWISE_ATOL and cw_err <= FRAMEWISE_ATOL, name
+        if name in ('Cnn_9layers_Conformer_FrameAtt',
+                    'Cnn_9layers_Conformer'):
+            kept[name] = (gpu, cpu)
+            by = profile_by_group(
+                lambda: gpu.predict_clips(pcm[:32]), SERVE_OP_GROUPS, '14',
+                f'{name} predict_clips(32 clips)', top=12)
+            assert by['log-mel'] > 0, 'the profile lacks the log-mel kernel'
+            attention = by['attention products'] + by['softmax']
+            print(f'[14] {name}: attention products + softmax '
+                  f'{attention:.0f} us = {attention / by["busy"]:.4f} of the '
+                  f'device time of a batch')
+        del gpu, cpu
+        torch.cuda.empty_cache()
+
+    # -- the Conformer windowed and streamed, GPU vs CPU ------------------
+    name = 'Cnn_9layers_Conformer_FrameAtt'
+    gpu, cpu = kept.pop(name)
+    kept.clear()
+    clips10 = make_clips(16, cfg.sample_rate, seconds=10, seed=21)
+    names10 = [f'clip{i}_0.wav' for i in range(len(clips10))]
+    step, window = 0.5, 6
+    kw = dict(sample_duration=window, overlap=True, overlap_value=step,
+              batch_size=32)
+    wgpu = SedInferenceEngine(gpu.model, cfg, dev, **kw)
+    wcpu = SedInferenceEngine(cpu.model, cfg, 'cpu', **kw)
+    fused_logmel.launches = 0
+    ev_gpu = wgpu.predict_clips_windowed(clips10, names10, 10.0, step)
+    launched = fused_logmel.launches
+    assert launched > 0, 'the Conformer windowed path launched no kernel'
+    total_launches += launched
+    events = check_events('windowed', ev_gpu, wcpu.predict_clips_windowed(
+        clips10, names10, 10.0, step))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wgpu.predict_clips_windowed(clips10, names10, 10.0, step)
+    rate = len(clips10) / (time.perf_counter() - t0)
+    print(f'[14] {name} windowed [{step}, {window}] on {card}: '
+          f'{len(window_starts(10.0, window, True, step))} windows a clip, '
+          f'16 clips of 10 s, {events}, kernel launches {launched}; '
+          f'{rate:.1f} clips/s (second run)')
+
+    stream = make_clips(6, cfg.sample_rate, seconds=5, seed=31).reshape(-1)
+    rng = np.random.RandomState(12)
+    sess = StreamingSed(gpu, 'stream')
+    fused_logmel.launches = 0
+    pos, feeds, got = 0, 0, []
+    while pos < len(stream):
+        size = int(rng.uniform(0.05, 3.0) * cfg.sample_rate)
+        got.extend(sess.feed(stream[pos:pos + size]))
+        pos += size
+        feeds += 1
+    early = len(got)
+    got += sess.flush()
+    launched = fused_logmel.launches
+    assert launched > 0, 'the Conformer stream did not launch the kernel'
+    total_launches += launched
+    events = check_events('stream', [got],
+                          [cpu.predict_waveform(stream, 'stream')])
+    print(f'[14] {name} StreamingSed on {dev}: 30 s in {feeds} random '
+          f'chunks, {events} ({early} before the flush; the CPU side is '
+          f'predict_waveform); kernel launches {launched}')
+    del gpu, cpu, wgpu, wcpu, sess
+    torch.cuda.empty_cache()
+
+    # -- training: BCE losses and logits losses ---------------------------
+    pools = (train_data(cfg, WEAK_BS, seed=51), train_data(cfg, STRONG_BS,
+                                                          seed=52))
+
+    def to(batch, d):
+        return {k: torch.from_numpy(v).to(d) for k, v in batch.items()}
+
+    for name in ('Cnn_9layers_Conformer_FrameAtt', 'Cnn_7layers_Conformer'):
+        kind = '_logits' if name in LOGIT_MODELS else ''
+
+        def step_for(state, augment=True):
+            return make_train_step(
+                state.model, state.optimizer,
+                losses_lib.get_loss_func('clip_bce' + kind),
+                losses_lib.get_loss_func('frame_bce' + kind), mixup=True,
+                timeshift=augment, spec_augment=augment,
+                wire_samples=cfg.audio_samples)
+
+        state = new_state(name, cfg, dev)
+        step_fn = step_for(state)
+        generator = torch.Generator(device=dev).manual_seed(1234)
+        batches = device_prefetch(train_batches(pools, 7, WEAK_BS, STRONG_BS),
+                                  size=2, device=dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        fused_logmel.launches = 0
+        losses = []
+        for i in range(12):
+            if i == 2:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            weak, strong = next(batches)
+            losses.append(step_fn(weak, strong, generator)['loss'])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = fused_logmel.launches
+        total_launches += launched
+        losses = torch.stack(losses).cpu()
+        peak = torch.cuda.max_memory_allocated(dev)
+        print(f'[14] train {name} (clip_bce{kind} + frame_bce{kind}) on '
+              f'{card}: weak {WEAK_BS} + strong {STRONG_BS} clips of 10 s a '
+              f'step, specaugment_timeshift_mixup; 10 timed steps (after 2) '
+              f'in {wall:.3f} s: {10 / wall:.3f} steps/s, '
+              f'{10 * (WEAK_BS + STRONG_BS) / wall:.1f} clips/s; peak memory '
+              f'{peak / 2**30:.2f} GiB; log-mel kernel launches {launched} '
+              f'(12 steps); losses {losses.tolist()}')
+        assert torch.isfinite(losses).all(), f'{name}: a loss is not finite'
+        assert losses[-3:].mean() < losses[:3].mean(), \
+            f'{name}: the losses do not fall'
+        assert launched == 2 * 12 and state.step == 12
+        profile_by_group(
+            lambda b=next(batches): step_fn(b[0], b[1], generator),
+            TRAIN_OP_GROUPS + SERVE_OP_GROUPS[4:], '14',
+            f'one train step of {name}', top=8)
+        batches.close()
+
+        # one step GPU = CPU: the same initial weights and batch, every
+        # dropout rate 0, SpecAugment and timeshift off
+        states = {d: new_state(name, cfg, d) for d in (dev, 'cpu')}
+        weak, strong = next(train_batches(pools, 3, 8, 4))
+        got = {}
+        for d, st in states.items():
+            assert zero_dropouts(st.model) >= 6
+            got[d] = step_for(st, augment=False)(
+                to(weak, d), [to(strong[0], d)],
+                torch.Generator(device=d).manual_seed(0))['loss'].item()
+        print(f'[14] {name} step 1 loss GPU {got[dev]!r} CPU {got["cpu"]!r}')
+        assert abs(got[dev] - got['cpu']) <= 1e-4 * abs(got['cpu'])
+        # moments 0.15, not 0.05: the biases of the convolutions in front
+        # of a training-mode BatchNorm (the baseline CNN's, the depthwise
+        # conv's) have an exactly zero gradient, so their first moment is
+        # float noise on either device (measured 0.03 of the scale)
+        check_state_diff(state_diff(states[dev], states['cpu']),
+                         f'{name} GPU - CPU after 1 step', phase=14,
+                         moments=0.15)
+        del states
+
+        # the trained model's checkpoint through the CLI's resolution
+        with tempfile.TemporaryDirectory() as tmp:
+            args = argparse.Namespace(checkpoint=None, feature_type='logmel',
+                                      model_type=name)
+            ws = Workspace(root=tmp, model_type=name)
+            saved = save_best_checkpoint(
+                ws.checkpoint_path('logmel', cfg.name, create=True), state)
+            path = common.checkpoint_path(args, cfg, ws)
+            assert path == saved, (path, saved)
+            loaded = load_checkpoint(path, name, cfg, dev)
+        e_loaded = SedInferenceEngine(loaded, cfg, dev, batch_size=32)
+        e_memory = SedInferenceEngine(state.model, cfg, dev, batch_size=32)
+        got = e_loaded.predict_clips(pcm)
+        assert got == e_memory.predict_clips(pcm), \
+            f'{name}: the saved checkpoint predicts other events'
+        # few events after 13 steps, so the framewise output too
+        fw_err = float(np.abs(e_loaded.infer_framewise(pcm)[0]
+                              - e_memory.infer_framewise(pcm)[0]).max())
+        assert fw_err <= 1e-6, (name, fw_err)
+        print(f'[14] {name} {os.path.basename(path)} -> checkpoint_path -> '
+              f'load_checkpoint -> predict_clips on 64 clips: '
+              f'{sum(map(len, got[0]))} events, events and XML equal to the '
+              f'trained model in memory, max |framewise| difference '
+              f'{fw_err!r}')
+        del state, step_fn, loaded, e_loaded, e_memory
+        torch.cuda.empty_cache()
+    return total_launches
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -692,6 +1038,16 @@ def main() -> None:
         r'(\d+) bytes spill stores, (\d+) bytes spill loads', lib.build_log)]
     print(f'[2] ptxas: registers {regs}, spill bytes {spills}')
     assert regs and spills and not any(spills), 'ptxas spilled registers'
+
+    if '--families-only' in sys.argv[1:]:
+        cfg = config.AUDIO_16K
+        pcm = (np.clip(make_clips(64, cfg.sample_rate, seconds=5, seed=0),
+                       -1, 1) * 32767).astype(np.int16)
+        t14 = time.perf_counter()
+        families_phase(card, dev, cfg, pcm)
+        print(f'[14] families phase done in {time.perf_counter() - t14:.1f} '
+              's; phases 3-13 were not run: no result')
+        return
 
     # -- 3. kernel vs plain ----------------------------------------------
     max_err = 0.0
@@ -1022,6 +1378,12 @@ def main() -> None:
     max_err = max([max_err] + [v[3] for v in train_kernel.values()])
     print(f'[13] training phase done in {time.perf_counter() - t13:.1f} s')
 
+    # -- 14. the other model families ---------------------------------------
+    torch.cuda.empty_cache()
+    t14 = time.perf_counter()
+    n_launch14 = families_phase(card, dev, cfg, pcm)
+    print(f'[14] families phase done in {time.perf_counter() - t14:.1f} s')
+
     blocked = [m for m in sys.modules
                if m.split('.')[0] in ('sed_tpu', 'jax', 'jaxlib', 'flax',
                                       'optax', 'orbax')]
@@ -1033,7 +1395,8 @@ def main() -> None:
         'source': 'sed_tpu_torch/csrc/logmel.cu',
         'replaces': 'sed_tpu/ops/logmel_kernel.py:48',
         'launches': (launches + t_launches + w_launches + e_launches
-                     + v_launches + s_launches + r_launches + n_launch13),
+                     + v_launches + s_launches + r_launches + n_launch13
+                     + n_launch14),
         'max_abs_err': max_err,
         'ms': kernel_ms, 'plain_ms': plain_ms,
         'bound_ms': bound[0], 'bound_by': bound[1],

@@ -9,14 +9,16 @@ dsp         log-mel frontend in plain PyTorch (the kernel's plain version)
             and the DFT / mel filter design
 ops         the hand-written CUDA log-mel kernel's wrapper; the device
             decode of every fixed-width wire (int16, mu-law, qN, ADPCM)
-models      nn.Module model zoo (CnnSed family: CNN, + BiGRU, + MultiHead),
-            train mode included; sed_tpu's initialisers
+models      nn.Module model zoo, all of sed_tpu's registry names (CnnSed:
+            CNN, + BiGRU, + MultiHead; the ESPnet Transformer / Conformer
+            encoders and the Conformer, token-pooling, VGGish and CNN14
+            models), train mode included; sed_tpu's initialisers
 augment     SpecAugment, mixup and timeshift on tensors
-losses      clip / frame BCE
+losses      clip / frame BCE, on probabilities and on logits
 train       optax-form AMSGrad, the joint train step (loss scaling),
             .pth checkpoint lineage, device prefetch
 compat      flax variables / reference .pth -> PyTorch state_dict bridge;
-            seeded Transformer weights on the bench checkpoint
+            seeded weights on the bench checkpoint for the other models
 serve       wav -> events -> XML serving engine (batched, pipelined
             stream, on-device windowed merging) and ``StreamingSed``
 post        event decoding, overlap-add merging, XML

@@ -169,7 +169,7 @@ def setup_training(args):
     if getattr(args, 'compute_dtype', 'f32') == 'bf16':
         raise SystemExit('--compute_dtype bf16: the bf16 conv stack (and the '
                          'loss-scaled step as its default) is not ported '
-                         'yet, see ROADMAP.md queue 1 item 3; train in f32')
+                         'yet, see ROADMAP.md queue 1 item 2; train in f32')
     disable_tf32()
     device = check_device(args.device)
     cfg, ws = resolve(args)

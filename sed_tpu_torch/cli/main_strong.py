@@ -16,7 +16,9 @@ Modes, on the packed splits (``sed_tpu.cli.features``):
   and ``testing``, and the best checkpoint by validation framewise mAP
   and error rate saved as ``iter_<N>.pth`` + ``BEST`` in the workspace's
   checkpoint directory; ``--resume_iteration N`` restarts from the
-  checkpoint at N;
+  checkpoint at N.  With ``--loss_type clip_bce_logits`` (for
+  ``Cnn_7layers_Conformer`` / ``Cnn_9layers_Conformer``, whose outputs
+  are logits) the strong loss is ``frame_bce_logits``;
 * ``inference_prob``: one forward per 10 s clip (``Evaluator``), the
   submission CSV, micro P/R/F1/ER, and the ``test_predictions_*.pkl``
   pickle for offline threshold tuning;
@@ -126,10 +128,14 @@ def train(args):
     iteration = common.resume_training(args, state, ckpt_dir,
                                        statistics_container)
 
+    # the token-pooling Conformers put out logits: ``--loss_type
+    # clip_bce_logits`` takes the strong loss on logits too
+    strong_loss_type = 'frame_bce_logits' \
+        if args.loss_type.endswith('_logits') else 'frame_bce'
     step_fn = make_train_step(
         state.model, state.optimizer,
         losses_lib.get_loss_func(args.loss_type),
-        losses_lib.get_loss_func('frame_bce'), mixup=mixup,
+        losses_lib.get_loss_func(strong_loss_type), mixup=mixup,
         timeshift=timeshift, spec_augment=spec_augment,
         wire_samples=cfg.audio_samples)
     evaluator = Evaluator(state.model, device, config.EVAL_SED_PARAMS)

@@ -1,5 +1,10 @@
-"""Weights for ``Cnn_9layers_Transformer_FrameAtt`` without a trained
-checkpoint of it, made with numpy alone.
+"""Weights for the models the repo has no trained checkpoint of.
+
+``transformer_variables`` makes ``Cnn_9layers_Transformer_FrameAtt``'s
+with numpy alone; ``seeded_model`` makes any registry model's from the
+port's own ``init_weights`` under a CPU ``torch.Generator`` (the same
+weights for every device), with the trained bench conv stack where the
+family shares it.
 
 The repo's trained checkpoint, ``tools/bench_checkpoint.npz``, is a
 ``Cnn_9layers_Gru_FrameAtt``.  Its ``bn0``, ``conv_block1-4`` and
@@ -61,3 +66,32 @@ def transformer_variables(seed: int = 0) -> dict:
     params['multihead'] = multihead
     stats = {k: v for k, v in bench['batch_stats'].items() if k in _KEPT}
     return {'params': params, 'batch_stats': stats}
+
+
+def seeded_model(model_type: str, cfg, seed: int = 0):
+    """A registry model on the CPU, in eval mode, with seeded weights.
+
+    Every tensor is drawn by ``models/blocks.init_weights`` from
+    ``torch.Generator().manual_seed(seed)`` on the CPU (``sed_tpu``'s
+    distributions, not its draws).  Where the model has the bench
+    checkpoint's 4-block conv stack (``ConformerSed`` with 4 blocks, the
+    'convblocks' ``TokenPoolingConformer``) its ``bn0`` and
+    ``conv_block1-4`` tensors are the trained ones, so the encoder sees
+    realistic features; the other families (6-block stacks, the baseline
+    CNN, VGGish, CNN14) stay as drawn."""
+    import torch
+    from sed_tpu_torch.compat.from_flax import state_dict_from_variables
+    from sed_tpu_torch.models.blocks import init_weights
+    from sed_tpu_torch.models.registry import get_model
+    model = init_weights(get_model(model_type, cfg),
+                         torch.Generator().manual_seed(seed))
+    if getattr(model, 'conv_channels', None) == (64, 128, 256, 512) \
+            and getattr(model, 'bn0', None) is not None:
+        bench = npz_ckpt.load_variables_npz(BENCH_CHECKPOINT)
+        kept = _KEPT[:-1]                               # without att_block
+        state = state_dict_from_variables({
+            'params': {k: bench['params'][k] for k in kept},
+            'batch_stats': {k: bench['batch_stats'][k] for k in kept}})
+        _, unexpected = model.load_state_dict(state, strict=False)
+        assert not unexpected, unexpected
+    return model.eval()

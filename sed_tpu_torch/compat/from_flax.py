@@ -11,6 +11,10 @@ The input is the JAX package's variables tree as nested numpy dicts
 * ``gru/{fw,bw}/{w_ih,w_hh,b_ih,b_hh}`` -> ``gru.weight_ih_l0[_reverse]``
   and the rest; ``sed_tpu`` already stores torch's (r, z, n) gate order.
 
+* LayerNorm scale/bias -> weight/bias; the conv module's depthwise kernel
+  (K, 1, C) -> ``Conv1d`` weight (C, 1, K); its ``pw1`` / ``pw2`` Dense
+  kernels -> Linear; ``r_w_bias`` / ``r_r_bias`` verbatim.
+
 ``reference_state_dict`` writes a port ``state_dict`` in the reference's
 layout (what the port's trainer saves) and ``port_state_dict`` reads it
 back.  ``load_checkpoint`` also reads the reference's ``.pth`` checkpoints:
@@ -23,6 +27,7 @@ need JAX to read and are refused with the export to use.
 from __future__ import annotations
 
 import os
+import re
 from typing import Dict
 
 import numpy as np
@@ -58,6 +63,8 @@ def torch_key(collection: str, path: tuple, leaf: np.ndarray):
     if name == 'kernel':
         if leaf.ndim == 4:                        # conv HWIO -> OIHW
             return '.'.join(mods + ['weight']), leaf.transpose(3, 2, 0, 1)
+        if leaf.ndim == 3:          # depthwise (K, 1, C) -> Conv1d (C, 1, K)
+            return '.'.join(mods + ['weight']), leaf.transpose(2, 1, 0)
         return '.'.join(mods + ['weight']), leaf.T  # Dense (in,out)->(out,in)
     return '.'.join(mods + [_BN.get(name, name)]), leaf
 
@@ -77,27 +84,88 @@ def state_dict_from_variables(variables: dict) -> Dict[str, torch.Tensor]:
     return state
 
 
-# the reference's attention head is two 1x1 Conv1d, weights (O, I, 1);
-# the port's are Linear, (O, I)
-_CONV1D_HEAD = ('att_block.att.weight', 'att_block.cla.weight')
+# ---------------------------------------------------------------------------
+# the port's state_dict <-> the reference's layout
+# ---------------------------------------------------------------------------
+
+# (port key prefix, reference key prefix); ``#`` stands for an index.  The
+# reference builds its encoder package out of ``nn.Sequential``s, so its
+# keys are positions (``compat/torch_loader.py`` has the way back onto
+# the flax names, which are the port's); its pointwise and depthwise
+# convs sit in wrappers (``.conv``), and its stripped VGGish is
+# ``Sequential(features)``, hence ``vggish.0.<n>``.  A key no row matches
+# is the same in both layouts.
+_RENAMES = (
+    ('encoder.input_layer.linear.', 'encoder.input_layer.0.'),
+    ('encoder.input_layer.norm.', 'encoder.input_layer.1.'),
+    ('encoder.input_layer.conv1.', 'encoder.input_layer.conv.0.'),
+    ('encoder.input_layer.conv2.', 'encoder.input_layer.conv.2.'),
+    ('encoder.input_layer.out.', 'encoder.input_layer.out.0.'),
+    *((f'encoder.block#.{ffn}.{ours}.',
+       f'encoder.conformer_blocks.#.{ffn}.feed_forward_module.{theirs}.')
+      for ffn in ('ffn1', 'ffn2')
+      for ours, theirs in (('norm', 0), ('w_1', 1), ('w_2', 4))),
+    *((f'encoder.block#.conv.{ours}.',
+       f'encoder.conformer_blocks.#.conv.conv.{theirs}.')
+      for ours, theirs in (('norm', '0'), ('pw1', '1.conv'),
+                           ('dw', '3.conv'), ('bn', '5'),
+                           ('pw2', '8.conv'))),
+    ('encoder.block#.', 'encoder.conformer_blocks.#.'),   # mhsa, norm
+    ('encoder.layer#.', 'encoder.encoders.#.'),
+    ('cnn.bn#.', 'cnn.cnn.batchnorm#.'),
+    ('cnn.', 'cnn.cnn.'),                                 # conv#, glu#, cg#
+    *((f'vggish.conv{i}.', f'vggish.0.{n}.')
+      for i, n in enumerate((0, 3, 6, 8, 11, 13))),
+)
+
+
+def _compile(rows, src: int):
+    return [(re.compile('^' + re.escape(row[src]).replace('\\#',
+                                                          r'(\d+)')),
+             row[1 - src].replace('#', r'\1')) for row in rows]
+
+
+_TO_REFERENCE = _compile(_RENAMES, 0)
+_TO_PORT = _compile(_RENAMES, 1)
+
+# 1x1 ``Conv1d`` weights (O, I, 1) in the reference that are ``Linear``
+# (O, I) in the port: the attention head and the conv module's pointwise
+# convs (reference keys)
+_CONV1D_AS_LINEAR = re.compile(
+    r'^(att_block\.(att|cla)|encoder\.conformer_blocks\.\d+\.conv\.conv\.'
+    r'(1|8)\.conv)\.weight$')
+
+
+def _rename(key: str, table) -> str:
+    for pattern, repl in table:
+        new, n = pattern.subn(repl, key, count=1)
+        if n:
+            return new
+    return key
 
 
 def reference_state_dict(state: Dict[str, torch.Tensor]
                          ) -> Dict[str, torch.Tensor]:
-    """A port model's ``state_dict`` -> the reference's layout (the port's
-    names, ``att_block.{att,cla}.weight`` as Conv1d (O, I, 1)), on the
-    CPU: what ``sed_tpu.compat.torch_loader`` and the reference read."""
+    """A port model's ``state_dict`` -> the reference's layout, on the
+    CPU: what ``sed_tpu.compat.torch_loader`` and the reference read.
+    For the CNN, GRU and MultiHead families the names are the port's own;
+    the encoder package, the baseline CNN and VGGish get the reference's
+    ``nn.Sequential`` positions; ``att_block.{att,cla}`` and the conv
+    module's pointwise weights become Conv1d (O, I, 1)."""
     out = {}
     for key, value in state.items():
         value = value.detach().to('cpu', copy=True)
-        out[key] = value[:, :, None] if key in _CONV1D_HEAD else value
+        key = _rename(key, _TO_REFERENCE)
+        out[key] = value[:, :, None] if _CONV1D_AS_LINEAR.match(key) \
+            else value
     return out
 
 
 def port_state_dict(reference: Dict[str, torch.Tensor]
                     ) -> Dict[str, torch.Tensor]:
     """Inverse of ``reference_state_dict``."""
-    return {key: value[:, :, 0] if key in _CONV1D_HEAD else value
+    return {_rename(key, _TO_PORT):
+            value[:, :, 0] if _CONV1D_AS_LINEAR.match(key) else value
             for key, value in reference.items()}
 
 
@@ -108,10 +176,18 @@ def load_variables(model: torch.nn.Module, variables: dict):
     return model
 
 
-def _model_with(variables: dict, model_type: str, cfg,
-                device) -> torch.nn.Module:
+def _model_with(variables: dict, model_type: str, cfg, device,
+                drop_unused: bool = False) -> torch.nn.Module:
     from sed_tpu_torch.models.registry import get_model
     model = get_model(model_type, cfg)
+    if drop_unused:
+        # tensors the reference's module holds and its forward never
+        # uses (``reference_unused`` of the model class); flax ignores
+        # such leaves, a strict load would not
+        variables = {
+            collection: {k: v for k, v in tree.items()
+                         if k not in model.reference_unused}
+            for collection, tree in variables.items()}
     load_variables(model, variables)
     return model.to(torch.device(device)).eval()
 
@@ -146,6 +222,7 @@ def load_checkpoint(path: str, model_type: str, cfg,
     if path.endswith('.npz'):
         return load_npz(path, model_type, cfg, device)
     if path.endswith('.pth'):
-        return _model_with(pth_variables(path), model_type, cfg, device)
+        return _model_with(pth_variables(path), model_type, cfg, device,
+                           drop_unused=True)
     raise ValueError(f'{path}: a checkpoint is a sed_tpu .npz or a '
                      'reference .pth')

@@ -3,7 +3,9 @@ augmentation (counterpart of ``sed_tpu/models/base.py``).
 
 The frontend is ``fused_logmel``: the CUDA kernel for a tensor on the
 GPU, its plain PyTorch version for a tensor on the CPU.  ``bn0`` is a
-BatchNorm over the mel bins (axis 2 of the reference's (B, T, F, 1)).
+BatchNorm over the mel bins (axis 2 of the reference's (B, T, F, 1)); a
+model built with ``skip_bn0`` (VGGish, whose reference comments it out)
+has no such module and no tensors of it.
 In training mode ``bn0`` uses batch statistics and the augmentations
 run in ``sed_tpu``'s order: SpecAugment, then mixup (timeshift first
 when both are on) or timeshift alone.
@@ -28,21 +30,28 @@ class SedFeatureBase(nn.Module):
     reference.
     """
 
-    def __init__(self, cfg, feature_type: str = 'logmel'):
+    # top-level modules that the reference's class of this model holds
+    # and never runs: a reference ``.pth`` has their tensors, the port's
+    # model does not (``compat/from_flax.load_checkpoint`` drops them)
+    reference_unused: tuple = ()
+
+    def __init__(self, cfg, feature_type: str = 'logmel',
+                 skip_bn0: bool = False):
         super().__init__()
         if feature_type != 'logmel':
             raise NotImplementedError(
                 f'feature_type {feature_type!r}: only logmel is ported')
         self.cfg = cfg
-        self.bn0 = BatchNorm(cfg.mel_bins)
+        self.bn0 = None if skip_bn0 else BatchNorm(cfg.mel_bins)
 
     def compute_features(self, wav: torch.Tensor,
                          mixup_lambda: Optional[torch.Tensor] = None,
-                         timeshift: bool = False, spec_augment: bool = False,
+                         timeshift: bool = False, spec_augment: bool = True,
                          generator: Optional[torch.Generator] = None
                          ) -> torch.Tensor:
         x = fused_logmel(wav, self.cfg)                     # (B, T, F)
-        x = self.bn0(x.transpose(1, 2)).transpose(1, 2)
+        if self.bn0 is not None:
+            x = self.bn0(x.transpose(1, 2)).transpose(1, 2)
         x = x[:, None]                                      # (B, 1, T, F)
         if not self.training:
             return x

@@ -197,12 +197,17 @@ class MultiHead(nn.Module):
 # ---------------------------------------------------------------------------
 
 
+# flax's truncated normal: cut at +-2 standard deviations and rescaled
+# to keep the variance
+_TRUNC_STD = .87962566103423978
+
+
 def _xavier_normal_(w: torch.Tensor, generator) -> None:
     """flax ``xavier_normal``: variance_scaling(1, fan_avg,
     'truncated_normal'), a normal truncated at two standard deviations
     whose scale is raised to keep the variance 2 / (fan_in + fan_out)."""
     fan_in, fan_out = nn.init._calculate_fan_in_and_fan_out(w)
-    std = math.sqrt(2.0 / (fan_in + fan_out)) / .87962566103423978
+    std = math.sqrt(2.0 / (fan_in + fan_out)) / _TRUNC_STD
     nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
                           generator=generator)
 
@@ -224,18 +229,44 @@ def _init_gru(gru: nn.GRU, generator) -> None:
         nn.init.zeros_(getattr(gru, 'bias_hh' + suffix))
 
 
+def _lecun_normal_(w: torch.Tensor, generator) -> None:
+    """flax's default kernel initialiser: variance_scaling(1, fan_in,
+    'truncated_normal'), variance 1 / fan_in."""
+    fan_in, _ = nn.init._calculate_fan_in_and_fan_out(w)
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                          generator=generator)
+
+
+# the modules whose kernels ``sed_tpu`` names xavier-uniform: all of a
+# ConvBlock's and an AttBlock's, and these heads of a model
+_XAVIER_HEADS = ('fc', 'fc1')
+
+
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator = None
                  ) -> nn.Module:
-    """Draw a fresh model from ``sed_tpu``'s distributions: xavier-uniform
-    conv, ``att``, ``cla`` and ``fc`` kernels; the GRU's per-gate uniform
-    and orthogonal n gate; normal(sqrt(2 / (d_model + d_k))) Q, K, V and a
-    xavier-normal MultiHead ``fc``; zero biases; BatchNorm scale 1, bias
-    0, running mean 0 and variance 1."""
+    """Draw a fresh model from ``sed_tpu``'s distributions.
+
+    Xavier-uniform where ``sed_tpu`` names it: ConvBlock convs, ``att``,
+    ``cla``, the ``fc`` / ``fc1`` heads.  The GRU's per-gate uniform and
+    orthogonal n gate.  MultiHead: normal(sqrt(2 / (d_model + d_k))) Q,
+    K, V and a xavier-normal ``fc``.  Every other ``Linear`` / ``Conv``
+    (the encoder layers, ``linear_emb``, ``classifier``, the VGGish and
+    baseline-CNN convs, the depthwise conv) gets flax's default,
+    lecun-normal.  Biases, ``r_w_bias`` and ``r_r_bias`` 0; BatchNorm
+    and LayerNorm scale 1, bias 0; running mean 0 and variance 1."""
     in_multihead = {id(sub) for mh in model.modules()
                     if isinstance(mh, MultiHead) for sub in mh.modules()}
+    xavier = {id(sub) for m in model.modules()
+              if isinstance(m, (ConvBlock, AttBlock)) for sub in m.modules()}
+    xavier.update(id(getattr(model, name)) for name in _XAVIER_HEADS
+                  if hasattr(model, name))
+    for name, p in model.named_parameters():
+        if name.endswith(('r_w_bias', 'r_r_bias')):
+            nn.init.zeros_(p)
     for m in model.modules():
-        if isinstance(m, BatchNorm):
+        if isinstance(m, (BatchNorm, nn.LayerNorm)):
             m.reset_parameters()
         elif isinstance(m, nn.GRU):
             _init_gru(m, generator)
@@ -248,9 +279,12 @@ def init_weights(model: nn.Module, generator: torch.Generator = None
                 nn.init.zeros_(lin.bias)
             _xavier_normal_(m.fc.weight, generator)
             nn.init.zeros_(m.fc.bias)
-        elif isinstance(m, (nn.Conv2d, nn.Linear)) and \
+        elif isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Linear)) and \
                 id(m) not in in_multihead:
-            nn.init.xavier_uniform_(m.weight, generator=generator)
+            if id(m) in xavier:
+                nn.init.xavier_uniform_(m.weight, generator=generator)
+            else:
+                _lecun_normal_(m.weight, generator)
             if m.bias is not None:
                 nn.init.zeros_(m.bias)
     return model

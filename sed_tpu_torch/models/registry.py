@@ -1,15 +1,22 @@
 """Model registry: reference ``model_type`` strings -> constructors
 (counterpart of ``sed_tpu/models/registry.py``).
 
-The ``CnnSed`` entries (CNN, CNN + BiGRU, CNN + single-block
-Transformer) are ported; any other name raises ``KeyError`` listing the
-ported ones.
+All of ``sed_tpu``'s names: the ``CnnSed`` entries (CNN, CNN + BiGRU,
+CNN + single-block Transformer), the Conformer family and its
+token-pooling variants, VGGish and PANNs CNN14.  ``cls`` picks the model
+class of an entry (default ``CnnSed``).
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict
 
+from torch import nn
+
+from sed_tpu_torch.models.conformer_zoo import (ConformerSed,
+                                                TokenPoolingConformer)
+from sed_tpu_torch.models.panns import Cnn14DecisionLevelAtt
+from sed_tpu_torch.models.vggish import VGGishSed
 from sed_tpu_torch.models.zoo import CnnSed
 
 MODEL_REGISTRY: Dict[str, Callable] = {}
@@ -20,8 +27,9 @@ def register(name: str, **kwargs):
              **extra):
         merged = dict(kwargs)
         merged.update(extra)
-        return CnnSed(cfg, classes_num=classes_num,
-                      feature_type=feature_type, **merged)
+        return merged.pop('cls', CnnSed)(
+            cfg, classes_num=classes_num, feature_type=feature_type,
+            **merged)
     MODEL_REGISTRY[name] = ctor
     return ctor
 
@@ -53,15 +61,37 @@ register('Cnn_14layers_Transformer_FrameAtt', temporal='multihead',
          head='att', conv_channels=(64, 128, 256, 512, 1024, 2048),
          pad_to_roundup=True)
 
+# CNN + Conformer family, and the token-pooling Conformers (logit outputs)
+register('Cnn_9layers_Conformer_FrameAtt', cls=ConformerSed, head='att',
+         encoder_type='Conformer')
+register('Cnn_9layers_Conformer_FrameAvg', cls=ConformerSed, head='avg',
+         encoder_type='Conformer')
+register('Cnn_14layers_Conformer_FrameAtt', cls=ConformerSed, head='att',
+         encoder_type='Conformer',
+         conv_channels=(64, 128, 256, 512, 1024, 2048))
+register('Cnn_7layers_Conformer', cls=TokenPoolingConformer,
+         backbone='baseline', encoder_type='Conformer', interpolate_ratio=8)
+register('Cnn_9layers_Conformer', cls=TokenPoolingConformer,
+         backbone='convblocks', encoder_type='Conformer',
+         interpolate_ratio=0)
+
+# VGGish transfer-learning family
+register('VGGish_FrameAtt', cls=VGGishSed, head='att')
+register('VGGish_Gru_FrameAtt', cls=VGGishSed, head='gru_att')
+register('VGGish_FrameAvg', cls=VGGishSed, head='avg')
+
+# PANNs CNN14
+register('Cnn14_DecisionLevelAtt', cls=Cnn14DecisionLevelAtt)
+
 
 def get_model(model_type: str, cfg, classes_num: int = 25,
-              feature_type: str = 'logmel', **kwargs) -> CnnSed:
+              feature_type: str = 'logmel', **kwargs) -> nn.Module:
     """Instantiate a model by its reference name (on the CPU, in eval
     mode; move it with ``.to(device)``)."""
     if model_type not in MODEL_REGISTRY:
         raise KeyError(
-            f'model_type {model_type!r} is not ported to sed_tpu_torch; '
-            f'ported: {sorted(MODEL_REGISTRY)}')
+            f'unknown model_type {model_type!r}; available: '
+            f'{sorted(MODEL_REGISTRY)}')
     return MODEL_REGISTRY[model_type](
         cfg, classes_num=classes_num, feature_type=feature_type,
         **kwargs).eval()

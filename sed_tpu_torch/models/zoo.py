@@ -1,7 +1,7 @@
 """CNN [+ BiGRU | + MultiHead] + {max, avg, att} head SED models
 (counterpart of ``sed_tpu/models/zoo.py``).
 
-``forward(wav, mixup_lambda=None, timeshift=False, spec_augment=False,
+``forward(wav, mixup_lambda=None, timeshift=False, spec_augment=True,
 generator=None) -> {'framewise_output' (B, T', C), 'clipwise_output'
 (B, C), 'embedding'}`` at 100 output frames per second, the reference's
 API.  The augmentation flags and the dropouts act in training mode
@@ -59,7 +59,7 @@ class CnnSed(SedFeatureBase):
 
     def forward(self, wav: torch.Tensor,
                 mixup_lambda: Optional[torch.Tensor] = None,
-                timeshift: bool = False, spec_augment: bool = False,
+                timeshift: bool = False, spec_augment: bool = True,
                 generator: Optional[torch.Generator] = None) -> dict:
         interpolate_ratio = 2 ** (len(self.conv_channels) - 1)
         x = self.compute_features(wav, mixup_lambda, timeshift,

@@ -12,7 +12,8 @@ per-track maxima there, and only the threshold masks of the active
 Wires: ``predict_clips``, ``predict_clips_stream`` and
 ``infer_framewise`` take float32, int16 or any uint8 wire of
 ``ops/wire.py`` (mu-law, qN, ADPCM), decoded on the device;
-``predict_clips_windowed`` takes float32 or int16.
+``predict_clips_windowed`` takes the same wires of its whole clips, with
+``clip_samples`` naming their decoded length.
 
 Window schedule (reference ``predict.py:296-338``): windows advance 1 s
 with ``overlap`` else ``sample_duration`` s; window n >= 1 runs only
@@ -432,13 +433,14 @@ class SedInferenceEngine:
 
     @torch.inference_mode()
     def predict_clips_windowed(self, wavs: np.ndarray, names: List[str],
-                               duration: float, step: float
+                               duration: float, step: float,
+                               clip_samples: Optional[int] = None
                                ) -> List[List[dict]]:
-        """Uniform-length clips (N, samples), int16 or float32 (no uint8
-        wire, as in ``sed_tpu``) -> per-clip events, with overlapped
-        windows merged on the device (the
-        ``inference_prob_overlap`` path; counterpart of ``sed_tpu``'s
-        ``predict_clips_windowed``).
+        """Uniform-length clips (N, samples), float32 / int16, or their
+        uint8 wire with ``clip_samples`` naming the decoded length (the
+        wire is narrower) -> per-clip events, with overlapped windows
+        merged on the device (the ``inference_prob_overlap`` path;
+        counterpart of ``sed_tpu``'s ``predict_clips_windowed``).
 
         Windows start at ``window_starts(duration, sample_duration, True,
         step)``, sliced on the device at ``int(start * sr)`` samples.  Per
@@ -447,26 +449,25 @@ class SedInferenceEngine:
         frame offsets into ``t_win + (W - 1) * interval`` frames, division
         by ``merge.coverage_counts``; then ``_events_on_device``.
         """
-        if wavs.dtype == np.uint8:
-            raise NotImplementedError(
-                'predict_clips_windowed takes int16 or float32 clips; '
-                'uint8 wires go through predict_clips or '
-                'predict_clips_stream')
         n = wavs.shape[0]
+        if clip_samples is None:
+            clip_samples = wavs.shape[-1]
         limit = self.dispatch_ahead_batches * self.batch_size
         if n > limit:
             out: List[List[dict]] = []
             for i in range(0, n, limit):
                 out.extend(self.predict_clips_windowed(
-                    wavs[i:i + limit], names[i:i + limit], duration, step))
+                    wavs[i:i + limit], names[i:i + limit], duration, step,
+                    clip_samples))
             return out
         starts = window_starts(duration, self.sample_duration, True, step)
         sr = self.cfg.sample_rate
         offs = [int(s * sr) for s in starts]
-        if wavs.ndim != 2 or offs[-1] + self.window_samples > wavs.shape[1]:
+        if wavs.ndim != 2 or offs[-1] + self.window_samples > clip_samples:
             raise ValueError(f'{duration} s of {self.sample_duration} s '
                              f'windows at {step} s steps do not fit clips '
-                             f'of shape {wavs.shape}')
+                             f'of shape {wavs.shape} ({clip_samples} '
+                             'samples)')
         w_count = len(offs)
         interval = int(100 * step)
         t_win = self._out_frames
@@ -479,7 +480,8 @@ class SedInferenceEngine:
         merged = []
         for i0 in range(0, n, nc):
             clips = wire_ops.dequant_wire(torch.from_numpy(
-                np.ascontiguousarray(wavs[i0:i0 + nc])).to(self.device))
+                np.ascontiguousarray(wavs[i0:i0 + nc])).to(self.device),
+                clip_samples)
             wins = torch.stack([clips[:, o:o + self.window_samples]
                                 for o in offs], dim=1)   # (nc, W, samples)
             fw = self.model(wins.reshape(-1, self.window_samples))[

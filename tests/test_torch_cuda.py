@@ -355,3 +355,55 @@ def test_kernel_keeps_non_finite_frames_non_finite(device):
     assert torch.equal(~torch.isfinite(got).all(-1), bad)
     torch.testing.assert_close(got[~bad], fused_logmel(clean, cfg)[~bad],
                                rtol=0, atol=0)
+
+
+FAMILIES = ['Cnn_9layers_Conformer_FrameAtt', 'Cnn_9layers_Conformer_FrameAvg',
+            'Cnn_14layers_Conformer_FrameAtt', 'Cnn_7layers_Conformer',
+            'Cnn_9layers_Conformer', 'VGGish_FrameAtt', 'VGGish_Gru_FrameAtt',
+            'VGGish_FrameAvg', 'Cnn14_DecisionLevelAtt']
+
+
+@pytest.mark.parametrize('name', FAMILIES)
+def test_cuda_family_forward_matches_cpu(device, name):
+    """Each of the Conformer, VGGish and CNN14 names at full width on
+    seeded weights, 4 bench-corpus clips of 2 s: every output on the card
+    within 1e-4 of the CPU's (logits: of max(1, |x|)), one kernel launch
+    (VGGish skips ``bn0``, not the kernel)."""
+    import copy
+    from sed_tpu_torch.bench_corpus import make_clips
+    from sed_tpu_torch.compat.bench_weights import seeded_model
+    cfg = config.AUDIO_16K
+    model = seeded_model(name, cfg, seed=1)
+    wav = torch.from_numpy(make_clips(4, cfg.sample_rate, seconds=2, seed=8))
+    with torch.inference_mode():
+        want = model(wav)
+        fused_logmel.launches = 0
+        got = copy.deepcopy(model).to(device)(wav.to(device))
+    assert fused_logmel.launches == 1
+    for key, w in want.items():
+        g = got[key].cpu()
+        assert g.shape == w.shape and torch.isfinite(g).all(), key
+        err = ((g - w).abs() / w.abs().clamp_min(1.0)).max().item()
+        assert err <= 1e-4, (key, err)
+
+
+@pytest.mark.parametrize('name', ['Cnn_9layers_Conformer_FrameAtt',
+                                  'Cnn_7layers_Conformer',
+                                  'Cnn14_DecisionLevelAtt'])
+def test_cuda_family_dropouts_draw_from_the_generator(device, name):
+    """A training-mode forward on the card draws SpecAugment and every
+    dropout from the CUDA generator it is given: the same seed gives the
+    same output, another seed another."""
+    from sed_tpu_torch.compat.bench_weights import seeded_model
+    cfg = config.AUDIO_16K
+    model = seeded_model(name, cfg, seed=2).to(device).train()
+    wav = torch.from_numpy(_rows(cfg, 4, 2.0, seed=3)).to(device)
+
+    def run(seed):
+        g = torch.Generator(device=device).manual_seed(seed)
+        with torch.no_grad():
+            return model(wav, generator=g)['framewise_output']
+
+    a, b, c = run(1), run(1), run(2)
+    assert torch.isfinite(a).all()
+    assert torch.equal(a, b) and not torch.equal(a, c)

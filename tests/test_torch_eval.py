@@ -123,8 +123,10 @@ def test_windowed_window_counts_and_frames(models):
 def test_windowed_rejects_uint8_wire_and_short_clips(models):
     port = engine.SedInferenceEngine(models['gru'][2], CFG, 'cpu',
                                      sample_duration=5, batch_size=4)
-    with pytest.raises(NotImplementedError, match='uint8'):
-        port.predict_clips_windowed(np.zeros((2, 160000), np.uint8),
+    # a 4-bit wire is half as wide as its clips: without ``clip_samples``
+    # its width stands for the decoded length, and the windows do not fit
+    with pytest.raises(ValueError, match='do not fit'):
+        port.predict_clips_windowed(np.zeros((2, 80000), np.uint8),
                                     ['a', 'b'], duration=10.0, step=1)
     with pytest.raises(ValueError, match='do not fit'):
         port.predict_clips_windowed(np.zeros((2, 120000), np.float32),

@@ -304,3 +304,40 @@ def test_train_with_a_compressed_wire_fsd50k_and_all_augmentations(
         assert torch.isfinite(v.float()).all(), k
         if k.endswith('conv1.weight'):
             assert not torch.equal(v, fresh[k]), k
+
+
+def test_train_a_token_pooling_conformer_with_the_logits_losses(
+        dataset_dir, packed, tmp_path_factory):
+    """``main_strong train --model_type Cnn_7layers_Conformer --loss_type
+    clip_bce_logits``: the model's outputs are logits, so the strong loss
+    is ``frame_bce_logits`` too (``frame_bce`` of a logit is NaN).  Three
+    iterations with an evaluation at 2: finite parameters that moved, and
+    ``iter_2.pth`` in the reference's layout (``cnn.cnn.*``,
+    ``encoder.conformer_blocks.*``), which ``inference_prob`` finds and
+    loads by itself."""
+    name = 'Cnn_7layers_Conformer'
+    ws = _copy(packed, tmp_path_factory, 'ws_token')
+    base = ['--dataset_dir', dataset_dir, '--workspace', ws, *ARGS[2:],
+            '--model_type', name, '--loss_type', 'clip_bce_logits',
+            '--device', 'cpu']
+    from sed_tpu_torch.models.blocks import init_weights
+    from sed_tpu_torch.models.registry import get_model
+    fresh = init_weights(get_model(name, CFG),
+                         torch.Generator().manual_seed(0)).state_dict()
+    state = main_strong.main(['train', *base, '--stop_iteration', '3',
+                              '--eval_interval', '2'])
+    assert state.step == 3
+    for k, v in state.model.state_dict().items():
+        assert torch.isfinite(v.float()).all(), k
+    assert not torch.equal(state.model.classifier.weight, fresh[
+        'classifier.weight'])
+    lineage = Workspace(root=ws, model_type=name, loss_type='clip_bce_logits',
+                        batch_size=2, augmentation='none').checkpoint_path(
+                            'logmel', '16k')
+    saved = torch.load(os.path.join(lineage, 'iter_2.pth'),
+                       weights_only=True)['model']
+    assert saved['cnn.cnn.conv0.weight'].shape == (16, 1, 3, 3)
+    assert saved['encoder.conformer_blocks.0.conv.conv.1.conv.weight'
+                 ].shape == (288, 144, 1)
+    stats = main_strong.main(['inference_prob', *base])
+    assert stats['framewise_ap'].shape == (25,)

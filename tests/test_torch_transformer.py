@@ -209,9 +209,20 @@ def test_load_checkpoint_refuses_orbax_dir_and_other_files(tmp_path):
     'encoder.conformer_blocks.0.ffn1.feed_forward_module.1.weight',
     'module.cnn.cnn.conv0.weight', 'vggish.features.0.weight'])
 def test_pth_of_an_unported_family_raises(key):
-    """Conformer / ESPnet encoder, baseline CNN and VGGish keys raise in
-    the port's name map instead of landing in a Linear's slot."""
+    """No family is unported any more: Conformer / ESPnet encoder,
+    baseline CNN and VGGish keys land where ``sed_tpu``'s name map puts
+    them (the same tree, bitwise), and a key of no family still raises."""
     from sed_tpu_torch.compat import torch_loader as port_loader
-    with pytest.raises(KeyError, match='does not have'):
+    state = {key: np.arange(16, dtype=np.float32).reshape(4, 4)
+             if 'ffn1' in key else
+             np.arange(4 * 3 * 3 * 3, dtype=np.float32).reshape(4, 3, 3, 3)}
+    got = port_loader.state_dict_to_variables(state)
+    want = torch_loader.state_dict_to_variables(state)
+    flat = lambda t: jax.tree_util.tree_leaves_with_path(t)     # noqa: E731
+    assert [p for p, _ in flat(got)] == [p for p, _ in flat(want)]
+    assert all(np.array_equal(a, b) for (_, a), (_, b)
+               in zip(flat(got), flat(want)))
+    assert len(flat(got)) == 1
+    with pytest.raises(KeyError, match='unmapped'):
         port_loader.state_dict_to_variables(
-            {key: np.zeros((4, 4), np.float32)})
+            {'encoder.embed.0.weight': np.zeros((4, 4), np.float32)})

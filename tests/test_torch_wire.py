@@ -206,9 +206,38 @@ def test_predict_clips_rejects_foreign_uint8_widths(engines):
         port.predict_clips(np.zeros((2, width), np.int16))
 
 
-def test_windowed_path_refuses_uint8(engines):
+@pytest.fixture(scope='module')
+def long_clips():
+    return make_clips(3, AUDIO_16K.sample_rate, seconds=7, seed=5)
+
+
+@pytest.mark.parametrize('name', ['q6', 'adpcm4'])
+def test_windowed_on_wire_identical_to_sed_tpu(engines, long_clips, name):
+    """``predict_clips_windowed`` takes a wire of the whole clips, as
+    ``sed_tpu`` does: ``clip_samples`` names the decoded length, the clip
+    is decoded on the device and the windows are cut from it."""
+    ref, port = engines
+    samples = long_clips.shape[1]
+    buf = ENCODERS[name][0](long_clips)
+    assert buf.dtype == np.uint8 and buf.shape[1] < samples
+    names = ['a', 'b', 'c']
+    ev_ref = ref.predict_clips_windowed(buf, names, duration=7.0, step=1,
+                                        clip_samples=samples)
+    ev_port = port.predict_clips_windowed(buf, names, duration=7.0, step=1,
+                                          clip_samples=samples)
+    assert sum(map(len, ev_ref)) > 0
+    assert ev_port == ev_ref
+    # and the wire gives what its decoded clips give
+    decoded = ENCODERS[name][1](buf, samples)
+    assert port.predict_clips_windowed(decoded, names, duration=7.0,
+                                       step=1) == ev_port
+
+
+def test_windowed_path_refuses_uint8(engines, long_clips):
+    """... when ``clip_samples`` is missing: the width of a uint8 buffer
+    cannot name its decoded length."""
     _, port = engines
-    with pytest.raises(NotImplementedError, match='uint8'):
-        port.predict_clips_windowed(
-            jax_audio_io.adpcm_encode(np.zeros((1, 160000), np.float32)),
-            ['a'], duration=10.0, step=1)
+    buf = jax_audio_io.adpcm_encode(long_clips)
+    with pytest.raises(ValueError, match='samples'):
+        port.predict_clips_windowed(buf, ['a', 'b', 'c'], duration=7.0,
+                                    step=1)
