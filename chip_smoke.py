@@ -95,12 +95,36 @@ checks it against the same engine on the CPU.  Phases:
     under phase 13's bounds, and ``iter_N.pth`` -> ``load_checkpoint``
     -> ``predict_clips`` equal to the in-memory model.
 
-``python3 chip_smoke.py --families-only`` runs phases 1, 2 and 14 alone
-and prints no result line (for work on that phase).
+15. ``BASELINE.json`` ``configs[3]``, the gammatone feature, at 8, 16 and
+    32 kHz: pools of bench-corpus clips of 10 s packed on the host as
+    ``data/hdf5_pack.py`` packs them (numpy ``fft_gtgram_db``, int16
+    (64, 994)); ``dsp/gammatone.fft_gtgram_batch`` on 32 clips on the
+    card against numpy float64 (2e-5 of each clip's largest value), timed
+    against numpy; ``Cnn_9layers_Gru_FrameAtt(feature_type='gamma')``
+    trained at phase 13's settings (fresh init, weak 192 + strong 64
+    int16 feature rows a step drawn from the pools, through
+    ``train/step.py`` and ``device_prefetch``): 3 warm-up and 10 timed
+    steps (steps/s, clips/s, peak memory, finite losses, no log-mel
+    launch), a profiler breakdown of one 16 kHz step; at 16 kHz one step
+    GPU against CPU (weak 8 / strong 4, mixup on, SpecAugment and
+    timeshift off) under phase 13's bounds, the ``Evaluator`` forward of
+    the trained model on 32 packed clips GPU against CPU (within 1e-4)
+    and ``save_best_checkpoint`` -> ``checkpoint_path`` ->
+    ``load_checkpoint`` -> the same forward, equal; ``dsp/cqt.CQTFrontend``
+    on 32 clips of 5 s GPU and CPU against float64 (the card within 1e-2
+    dB of the CPU's own error), timed;
+    ``dsp/transforms.istft`` of the STFT of those clips on the card
+    against the clips (2e-3), timed.
+
+``python3 chip_smoke.py --families-only`` runs phases 1, 2 and 14 alone,
+``--gamma-only`` phases 1, 2 and 15, and neither prints a result line
+(for work on that phase).
 
 Phases 4, 7, 8, 9, 10, 11, 12, 13 and 14 drive the main paths: each sets the
 kernel's launch count to 0 just before and reads it just after, and
-fails if the kernel was not launched.  The script imports nothing of JAX
+fails if the kernel was not launched.  Phase 15 drives the gamma path the
+same way and fails if log-mel was launched there: that path has no
+kernel, its model takes packed features.  The script imports nothing of JAX
 and nothing of the JAX package ``sed_tpu``, and checks so at the end.
 
 Any failure raises (exit code != 0).  Without CUDA, or outside the
@@ -391,13 +415,14 @@ def train_batches(pools, seed: int, weak_bs: int, strong_bs: int):
         yield weak, [strong]
 
 
-def new_state(model_type, cfg, device, seed: int = 0):
+def new_state(model_type, cfg, device, seed: int = 0,
+              feature_type: str = 'logmel'):
     """A fresh registry model (``init_weights`` from a CPU generator
     seeded ``seed``) on ``device`` with its AMSGrad at lr 1e-3."""
     import torch
     from sed_tpu_torch.models.registry import get_model
     from sed_tpu_torch.train.state import create_train_state
-    model = get_model(model_type, cfg)
+    model = get_model(model_type, cfg, feature_type=feature_type)
     state = create_train_state(model, 1e-3, torch.Generator().manual_seed(seed))
     model.to(device)
     return state
@@ -996,6 +1021,211 @@ def families_phase(card: str, dev, cfg, pcm) -> int:
     return total_launches
 
 
+GAMMA_POOL = (96, 32)     # weak and strong clips a rate; batches draw rows
+
+
+def gamma_pools(cfg, seed: int):
+    """Phase 13's weak and strong pools with each 10 s clip replaced by
+    its packed gammatone features (numpy ``fft_gtgram_db(...).astype(
+    np.int16)``, as ``data/hdf5_pack.py`` writes them; the card has no
+    h5py, so nothing is packed to a file).  Returns the pools and the
+    host seconds a clip took to pack."""
+    import numpy as np
+    from sed_tpu_torch.dsp import gammatone as gt
+    pools, seconds, clips = [], 0.0, 0
+    for i, n in enumerate(GAMMA_POOL):
+        pcm, weak, strong = train_data(cfg, n, seed=seed + i)
+        t0 = time.perf_counter()
+        feats = np.stack([gt.fft_gtgram_db(row / 32767.0, cfg)
+                          .astype(np.int16) for row in pcm])
+        seconds += time.perf_counter() - t0
+        clips += n
+        pools.append((feats, weak, strong))
+    return tuple(pools), seconds / clips
+
+
+def gamma_phase(card: str, dev) -> None:
+    """Phase 15: ``BASELINE.json`` ``configs[3]`` (the gammatone feature)
+    and the other frontends on the card."""
+    import argparse
+    import copy
+    import numpy as np
+    import torch
+    from sed_tpu_torch import config, losses as losses_lib
+    from sed_tpu_torch.bench_corpus import make_clips
+    from sed_tpu_torch.cli import common
+    from sed_tpu_torch.compat.from_flax import load_checkpoint
+    from sed_tpu_torch.dsp import filters, gammatone as gt, transforms
+    from sed_tpu_torch.dsp.cqt import CQTFrontend
+    from sed_tpu_torch.dsp.frontend import stft
+    from sed_tpu_torch.eval.evaluator import Evaluator
+    from sed_tpu_torch.ops.logmel_kernel import fused_logmel
+    from sed_tpu_torch.train.checkpoint import save_best_checkpoint
+    from sed_tpu_torch.train.prefetch import device_prefetch
+    from sed_tpu_torch.train.step import make_train_step
+    from sed_tpu_torch.utils.paths import Workspace
+    model_type = 'Cnn_9layers_Gru_FrameAtt'
+
+    def step_for(state, augment=True):
+        return make_train_step(state.model, state.optimizer,
+                               losses_lib.clip_bce, losses_lib.frame_bce,
+                               mixup=True, timeshift=augment,
+                               spec_augment=augment)
+
+    states = {}
+    for cfg in (config.AUDIO_8K, config.AUDIO_16K, config.AUDIO_32K):
+        # (a) feature pools and fft_gtgram_batch on the card
+        pools, pack_s = gamma_pools(cfg, seed=151)
+        frames = pools[0][0].shape[-1]
+        assert frames == gt.gtgram_frames(cfg, cfg.audio_samples) == 994
+        args = (cfg.sample_rate, cfg.window_size / cfg.sample_rate,
+                cfg.hop_size / cfg.sample_rate, cfg.mel_bins, cfg.fmin)
+        clips = make_clips(32, cfg.sample_rate, seconds=10, seed=153)
+        wav = torch.from_numpy(clips).to(dev)
+        got = gt.fft_gtgram_batch(wav, *args).cpu().numpy()
+        t0 = time.perf_counter()
+        gold = [gt.fft_gtgram(c.astype(np.float64), *args) for c in clips[:4]]
+        np_ms = (time.perf_counter() - t0) / 4 * 1e3
+        err = max(float(np.abs(g - w).max() / np.abs(w).max())
+                  for g, w in zip(got, gold))
+        assert got.shape == (32, cfg.mel_bins, frames)
+        # fp32 sums of n_fft products (512-2048); measured on the H100
+        # 1.3e-6 / 2.3e-6 / 6.1e-6 at 8 / 16 / 32 kHz
+        assert err <= 2e-5, f'fft_gtgram_batch off float64 by {err}'
+        ms = cuda_ms(lambda: gt.fft_gtgram_batch(wav, *args))
+        print(f'[15] {cfg.name}: packed {sum(GAMMA_POOL)} clips of 10 s to '
+              f'int16 (64, {frames}) gammatone features on the host, '
+              f'{pack_s * 1e3:.1f} ms a clip; fft_gtgram_batch of 32 x '
+              f'{clips.shape[1]} on {card}: {ms:.4f} ms (median of 20), '
+              f'numpy float64 fft_gtgram {np_ms:.1f} ms a clip x 32 = '
+              f'{np_ms * 32:.1f} ms; max |card - float64| {err!r} of each '
+              "clip's largest value")
+        del wav
+
+        # (b) configs[3]: train at full width and depth
+        state = new_state(model_type, cfg, dev, feature_type='gamma')
+        step_fn = step_for(state)
+        generator = torch.Generator(device=dev).manual_seed(1234)
+        batches = device_prefetch(train_batches(pools, 7, WEAK_BS, STRONG_BS),
+                                  size=2, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        fused_logmel.launches = 0
+        losses = []
+        for i in range(13):
+            if i == 3:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            weak, strong = next(batches)
+            losses.append(step_fn(weak, strong, generator)['loss'])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fused_logmel.launches
+        losses = torch.stack(losses).cpu()
+        peak = torch.cuda.max_memory_allocated(dev)
+        upload = sum(v.nbytes for v in (weak['waveform'],
+                                        strong[0]['waveform']))
+        print(f'[15] train {model_type} gamma {cfg.name} on {card}: weak '
+              f'{WEAK_BS} + strong {STRONG_BS} int16 (64, {frames}) feature '
+              f'rows a step ({upload / 1e6:.1f} MB of features uploaded a '
+              f'step), specaugment_timeshift_mixup; 10 timed steps (after 3) '
+              f'in {wall:.3f} s: {10 / wall:.3f} steps/s, '
+              f'{10 * (WEAK_BS + STRONG_BS) / wall:.1f} clips/s; peak memory '
+              f'{peak / 2**30:.2f} GiB; log-mel kernel launches {launches}; '
+              f'losses {losses.tolist()}')
+        assert torch.isfinite(losses).all(), 'a gamma loss is not finite'
+        assert launches == 0, f'the gamma path launched log-mel {launches}x'
+        assert state.step == 13
+        if cfg is config.AUDIO_16K:
+            profile_train_step(step_fn, next(batches), generator, '15')
+            states[cfg.name] = (state, pools)
+        batches.close()
+        del step_fn, batches, weak, strong
+        torch.cuda.empty_cache()
+
+    # (c) GPU against CPU at 16 kHz
+    cfg = config.AUDIO_16K
+    state, pools = states['16k']
+    weak, strong = next(train_batches(pools, 3, 8, 4))
+    pair = {d: new_state(model_type, cfg, d, feature_type='gamma')
+            for d in (dev, 'cpu')}
+
+    def to(batch, d):
+        return {k: torch.from_numpy(v).to(d) for k, v in batch.items()}
+    got = {d: step_for(s, augment=False)(
+        to(weak, d), [to(strong[0], d)],
+        torch.Generator(device=d).manual_seed(0)) for d, s in pair.items()}
+    lg, lc = got[dev]['loss'].item(), got['cpu']['loss'].item()
+    print(f'[15] gamma step loss GPU {lg!r} CPU {lc!r}')
+    assert abs(lg - lc) <= 1e-4 * abs(lc), (lg, lc)
+    check_state_diff(state_diff(pair[dev], pair['cpu']),
+                     'gamma GPU - CPU after 1 step', phase=15)
+    del pair
+
+    feats = pools[0][0][:32]
+    names = [f'gamma{i}_0.wav' for i in range(32)]
+    loader = [{'audio_name': np.array(names[i:i + 12]),
+               'waveform': feats[i:i + 12]} for i in range(0, 32, 12)]
+    fused_logmel.launches = 0
+    out_gpu = Evaluator(state.model, dev).forward(loader)
+    assert fused_logmel.launches == 0
+    out_cpu = Evaluator(copy.deepcopy(state.model).cpu(),
+                        'cpu').forward(loader)
+    assert out_gpu['framewise_output'].shape == (32, 1000, 25)
+    e_err = float(np.abs(out_gpu['framewise_output']
+                         - out_cpu['framewise_output']).max())
+    print(f'[15] Evaluator forward of the trained gamma model on {dev}: 32 '
+          f'packed clips in batches of 12/12/8, max |framewise gpu - cpu| = '
+          f'{e_err!r}')
+    assert e_err <= FRAMEWISE_ATOL
+    with tempfile.TemporaryDirectory() as tmp:
+        args = argparse.Namespace(checkpoint=None, feature_type='gamma',
+                                  model_type=model_type)
+        ws = Workspace(root=tmp, model_type=model_type)
+        saved = save_best_checkpoint(ws.checkpoint_path('gamma', cfg.name,
+                                                        create=True), state)
+        path = common.checkpoint_path(args, cfg, ws)
+        assert path == saved, (path, saved)
+        loaded = load_checkpoint(path, model_type, cfg, dev,
+                                 feature_type='gamma')
+    out_loaded = Evaluator(loaded, dev).forward(loader)
+    assert np.array_equal(out_loaded['framewise_output'],
+                          out_gpu['framewise_output'])
+    print(f'[15] {os.path.relpath(path, tmp)} -> checkpoint_path -> '
+          'load_checkpoint(feature_type=gamma) -> Evaluator forward: equal '
+          'to the trained model in memory')
+    del state, loaded, states
+    torch.cuda.empty_cache()
+
+    # (d) CQTFrontend, 32 x 5 s at 16 kHz
+    clips = torch.from_numpy(make_clips(32, cfg.sample_rate, seconds=5,
+                                        seed=157))
+    fe_gpu = CQTFrontend(cfg)
+    x = clips.to(dev)
+    c_gpu = fe_gpu(x).cpu().double()
+    c_cpu = CQTFrontend(cfg, device='cpu')(clips).double()
+    c_f64 = CQTFrontend(cfg, device='cpu').double()(clips.double())
+    errs = [(c - c_f64).abs().max().item() for c in (c_gpu, c_cpu)]
+    c_ms = cuda_ms(lambda: fe_gpu(x))
+    print(f'[15] CQTFrontend 32 x 80000 on {card}: {tuple(c_gpu.shape)}, max '
+          f'|GPU - float64| {errs[0]!r} dB, |CPU - float64| {errs[1]!r} dB; '
+          f'{c_ms:.4f} ms (median of 20)')
+    # float32 power sums cancel in the faint lowest bins on both devices
+    assert errs[0] <= errs[1] + 1e-2, 'the card is off float64 beyond the CPU'
+
+    # (e) istft(stft(x)) on the card
+    mat = torch.from_numpy(filters.stft_matrices(cfg.window_size)).float()
+    re, im = stft(x, mat.to(dev), cfg.hop_size)
+    back = transforms.istft(re, im, cfg.window_size, cfg.hop_size,
+                            length=x.shape[1])
+    i_err = (back - x).abs().max().item()
+    i_ms = cuda_ms(lambda: transforms.istft(re, im, cfg.window_size,
+                                            cfg.hop_size, length=x.shape[1]))
+    print(f'[15] istft(stft(x)) of 32 x 80000 on {card}: max |x - back| '
+          f'{i_err!r}; istft {i_ms:.4f} ms (median of 20)')
+    assert back.is_cuda and i_err <= 2e-3
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1038,6 +1268,13 @@ def main() -> None:
         r'(\d+) bytes spill stores, (\d+) bytes spill loads', lib.build_log)]
     print(f'[2] ptxas: registers {regs}, spill bytes {spills}')
     assert regs and spills and not any(spills), 'ptxas spilled registers'
+
+    if '--gamma-only' in sys.argv[1:]:
+        t15 = time.perf_counter()
+        gamma_phase(card, dev)
+        print(f'[15] gamma phase done in {time.perf_counter() - t15:.1f} '
+              's; phases 3-14 were not run: no result')
+        return
 
     if '--families-only' in sys.argv[1:]:
         cfg = config.AUDIO_16K
@@ -1383,6 +1620,12 @@ def main() -> None:
     t14 = time.perf_counter()
     n_launch14 = families_phase(card, dev, cfg, pcm)
     print(f'[14] families phase done in {time.perf_counter() - t14:.1f} s')
+
+    # -- 15. configs[3]: the gammatone feature, CQT and ISTFT ---------------
+    torch.cuda.empty_cache()
+    t15 = time.perf_counter()
+    gamma_phase(card, dev)
+    print(f'[15] gamma phase done in {time.perf_counter() - t15:.1f} s')
 
     blocked = [m for m in sys.modules
                if m.split('.')[0] in ('sed_tpu', 'jax', 'jaxlib', 'flax',

@@ -6,13 +6,17 @@ plain PyTorch versions of its kernels).  Its layout mirrors ``sed_tpu``:
 
 config      audio configs, labels, event-decoding thresholds
 dsp         log-mel frontend in plain PyTorch (the kernel's plain version)
-            and the DFT / mel filter design
+            and the DFT / mel filter design; the gammatone filterbank
+            (numpy design and packing, batched gammatonegram on tensors)
+            and its plot CLI; the pseudo-CQT frontend; DFT / ISTFT /
+            enframe transforms on tensors
 ops         the hand-written CUDA log-mel kernel's wrapper; the device
             decode of every fixed-width wire (int16, mu-law, qN, ADPCM)
 models      nn.Module model zoo, all of sed_tpu's registry names (CnnSed:
             CNN, + BiGRU, + MultiHead; the ESPnet Transformer / Conformer
             encoders and the Conformer, token-pooling, VGGish and CNN14
-            models), train mode included; sed_tpu's initialisers
+            models) on log-mel or packed gammatone features, train mode
+            included; sed_tpu's initialisers
 augment     SpecAugment, mixup and timeshift on tensors
 losses      clip / frame BCE, on probabilities and on logits
 train       optax-form AMSGrad, the joint train step (loss scaling),
@@ -23,13 +27,14 @@ serve       wav -> events -> XML serving engine (batched, pipelined
             stream, on-device windowed merging) and ``StreamingSed``
 post        event decoding, overlap-add merging, XML
 native      the g++-built host event decoder (numpy fallback)
-data        audio I/O and wire constants; the HDF5 datasets, samplers
-            and loaders
+data        audio I/O and wire constants; label csvs, HDF5 packing, the
+            HDF5 datasets, samplers and loaders; the AudioSet downloader
 eval        Evaluator: forward over a split, AP and segment metrics
 thresholds  the numpy threshold optimizer
 utils       .npz checkpoints, workspace paths, statistics, logging
-cli         ``predict``, ``main_strong`` (training and inference),
-            ``main`` (weak-only training) and ``optimize_thresholds``
+cli         ``features`` (packing), ``download``, ``predict``,
+            ``main_strong`` (training and inference), ``main`` (weak-only
+            training), ``optimize_thresholds`` and ``calculate_metrics``
 
 It imports nothing of JAX and nothing of ``sed_tpu``: the numpy-only
 host modules it needs are its own copies, laid out as in ``sed_tpu``.

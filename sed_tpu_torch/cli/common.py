@@ -146,26 +146,39 @@ def build_model(args, cfg, ws):
     engine and evaluator refuse it."""
     from sed_tpu_torch.compat.from_flax import load_checkpoint
     from sed_tpu_torch.serve.engine import check_device, disable_tf32
-    if args.feature_type != 'logmel':
-        raise SystemExit(f'--feature_type {args.feature_type}: only logmel '
-                         'is ported')
     path = checkpoint_path(args, cfg, ws)
     disable_tf32()
     check_device(args.device)
     try:
-        return load_checkpoint(path, args.model_type, cfg, args.device)
+        return load_checkpoint(path, args.model_type, cfg, args.device,
+                               feature_type=args.feature_type)
     except ValueError as e:
         raise SystemExit(str(e)) from e
 
 
+def refuse_features(args, mode: str) -> None:
+    """Exit before anything loads when ``mode`` feeds waveforms and
+    ``--feature_type`` names packed features (``sed_tpu`` fails there
+    too, in the forward)."""
+    from sed_tpu_torch.serve.engine import refuse_features
+    try:
+        refuse_features(args.feature_type, mode)
+    except ValueError as e:
+        raise SystemExit(f'--feature_type {args.feature_type}: {e}') from e
+
+
 def setup_training(args):
     """Checks, TF32 off, device, logging: what both training CLIs do
-    before they touch the workspace's data."""
+    before they touch the workspace's data.  A flag that cannot train
+    exits before any workspace directory exists."""
     from sed_tpu_torch.serve.engine import check_device, disable_tf32
     from sed_tpu_torch.utils.logging_utils import create_logging
-    if args.feature_type != 'logmel':
-        raise SystemExit(f'--feature_type {args.feature_type}: only logmel '
-                         'is ported')
+    if (args.feature_type == 'gamma'
+            and getattr(args, 'train_wire', 'int16') != 'int16'):
+        raise SystemExit(
+            "--train_wire: mu-law/qN wires compress raw AUDIO; "
+            "feature_type='gamma' packs precomputed gammatone features "
+            "as 'waveform' (data/hdf5_pack.py) — use the default int16")
     if getattr(args, 'compute_dtype', 'f32') == 'bf16':
         raise SystemExit('--compute_dtype bf16: the bf16 conv stack (and the '
                          'loss-scaled step as its default) is not ported '
@@ -187,7 +200,8 @@ def train_state(args, cfg, device):
     from sed_tpu_torch.train.state import create_train_state
     from sed_tpu_torch.utils.logging_utils import count_parameters
     if args.checkpoint is not None:
-        model = load_checkpoint(args.checkpoint, args.model_type, cfg, 'cpu')
+        model = load_checkpoint(args.checkpoint, args.model_type, cfg, 'cpu',
+                                feature_type=args.feature_type)
     else:
         model = get_model(args.model_type, cfg,
                           feature_type=args.feature_type)

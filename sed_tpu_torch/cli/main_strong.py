@@ -6,7 +6,9 @@
     python -m sed_tpu_torch.cli.main_strong inference_prob_overlap \\
         --dataset_dir DS --workspace WS --audio_16k --device cuda
 
-Modes, on the packed splits (``sed_tpu.cli.features``):
+Modes, on the splits packed by ``python -m sed_tpu_torch.cli.features``
+(``--feature_type logmel`` or ``gamma``; ``train`` and ``inference_prob``
+take both, the windowed modes feed waveforms and take log-mel only):
 
 * ``train``: the reference's loop (``pytorch/main_strong.py:40-413``):
   each iteration one joint step (``train/step.py``) on a weak batch and
@@ -276,6 +278,7 @@ def _score(full_event_list, refs, submission) -> dict:
 def inference_prob_overlap(args):
     """Sliding-window inference with framewise averaging over the
     [overlap_value, window] grid, merged on the device."""
+    common.refuse_features(args, 'inference_prob_overlap')
     cfg, ws, model, sed_params = _setup(args)
     refs = common.reference_csv_paths(args)
     submission = ws.submission_path(create=True)
@@ -301,6 +304,7 @@ def inference_prob_vote(args):
     """Sliding-window inference with per-window binarisation against the
     high threshold and overlap-added vote counts."""
     from sed_tpu_torch.serve.engine import window_starts
+    common.refuse_features(args, 'inference_prob_vote')
     cfg, ws, model, sed_params = _setup(args)
     refs = common.reference_csv_paths(args)
     thr = np.asarray(

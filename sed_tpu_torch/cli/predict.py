@@ -70,6 +70,7 @@ def _predict_bulk(args, engine, out_dir, audio_files):
 
 
 def predict(args):
+    common.refuse_features(args, 'predict')
     cfg, ws = common.resolve(args)
     engine = _build_engine(args, cfg, ws)
     out_dir = ws.predict_results_dir(create=True)

@@ -177,9 +177,10 @@ def load_variables(model: torch.nn.Module, variables: dict):
 
 
 def _model_with(variables: dict, model_type: str, cfg, device,
-                drop_unused: bool = False) -> torch.nn.Module:
+                drop_unused: bool = False,
+                feature_type: str = 'logmel') -> torch.nn.Module:
     from sed_tpu_torch.models.registry import get_model
-    model = get_model(model_type, cfg)
+    model = get_model(model_type, cfg, feature_type=feature_type)
     if drop_unused:
         # tensors the reference's module holds and its forward never
         # uses (``reference_unused`` of the model class); flax ignores
@@ -192,11 +193,12 @@ def _model_with(variables: dict, model_type: str, cfg, device,
     return model.to(torch.device(device)).eval()
 
 
-def load_npz(path: str, model_type: str, cfg, device) -> torch.nn.Module:
+def load_npz(path: str, model_type: str, cfg, device,
+             feature_type: str = 'logmel') -> torch.nn.Module:
     """A registry model with the weights of a ``sed_tpu`` .npz checkpoint,
     on ``device``, in eval mode."""
     return _model_with(npz_ckpt.load_variables_npz(path), model_type, cfg,
-                       device)
+                       device, feature_type=feature_type)
 
 
 def pth_variables(path: str) -> dict:
@@ -210,19 +212,22 @@ def pth_variables(path: str) -> dict:
         {k: v.numpy() for k, v in state.items()})
 
 
-def load_checkpoint(path: str, model_type: str, cfg,
-                    device) -> torch.nn.Module:
+def load_checkpoint(path: str, model_type: str, cfg, device,
+                    feature_type: str = 'logmel') -> torch.nn.Module:
     """A registry model with the weights of a ``sed_tpu`` ``.npz`` or a
-    reference ``.pth`` checkpoint, on ``device``, in eval mode."""
+    reference ``.pth`` checkpoint, on ``device``, in eval mode.  A
+    ``feature_type='gamma'`` model has the same tensors as a log-mel one
+    (the reference's ``gamma_extractor.`` tensors are skipped by the name
+    map)."""
     if os.path.isdir(path):
         raise ValueError(
             f'{path} is an Orbax checkpoint directory, which needs JAX to '
             'read; export it once with sed_tpu.utils.npz_ckpt.'
             'save_variables_npz and pass the .npz')
     if path.endswith('.npz'):
-        return load_npz(path, model_type, cfg, device)
+        return load_npz(path, model_type, cfg, device, feature_type)
     if path.endswith('.pth'):
         return _model_with(pth_variables(path), model_type, cfg, device,
-                           drop_unused=True)
+                           drop_unused=True, feature_type=feature_type)
     raise ValueError(f'{path}: a checkpoint is a sed_tpu .npz or a '
                      'reference .pth')

@@ -57,15 +57,22 @@ def frontend_matrices(cfg, device: torch.device):
                  for m in filters.frontend_arrays(cfg))
 
 
-def spectrogram(x: torch.Tensor, stft_mat: torch.Tensor, hop_length: int,
-                center: bool = True,
-                pad_mode: str = 'reflect') -> torch.Tensor:
-    """Power spectrogram |STFT|^2, (B, T, n_fft // 2 + 1)."""
+def stft(x: torch.Tensor, stft_mat: torch.Tensor, hop_length: int,
+         center: bool = True, pad_mode: str = 'reflect'):
+    """STFT as one matmul with ``stft_mat`` (n_fft, 2 * bins): (real,
+    imag), each (B, T, n_fft // 2 + 1)."""
     n_fft = stft_mat.shape[0]
     frames = frame_signal(x, n_fft, hop_length, center, pad_mode)
     re_im = torch.matmul(frames, stft_mat)
     n_bins = n_fft // 2 + 1
-    re, im = re_im[..., :n_bins], re_im[..., n_bins:]
+    return re_im[..., :n_bins], re_im[..., n_bins:]
+
+
+def spectrogram(x: torch.Tensor, stft_mat: torch.Tensor, hop_length: int,
+                center: bool = True,
+                pad_mode: str = 'reflect') -> torch.Tensor:
+    """Power spectrogram |STFT|^2, (B, T, n_fft // 2 + 1)."""
+    re, im = stft(x, stft_mat, hop_length, center, pad_mode)
     return re * re + im * im
 
 

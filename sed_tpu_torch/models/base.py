@@ -1,8 +1,13 @@
-"""Shared SED model preamble: log-mel frontend, ``bn0`` and train-time
-augmentation (counterpart of ``sed_tpu/models/base.py``).
+"""Shared SED model preamble: log-mel frontend (or precomputed gammatone
+features), ``bn0`` and train-time augmentation (counterpart of
+``sed_tpu/models/base.py``).
 
-The frontend is ``fused_logmel``: the CUDA kernel for a tensor on the
-GPU, its plain PyTorch version for a tensor on the CPU.  ``bn0`` is a
+With ``feature_type='logmel'`` the frontend is ``fused_logmel``: the
+CUDA kernel for a tensor on the GPU, its plain PyTorch version for a
+tensor on the CPU.  With ``feature_type='gamma'`` the input is the
+packed (B, mel_bins, T) gammatonegram (``dsp/gammatone.fft_gtgram_db``,
+as the HDF5 path ships it: int16 / 32767) and no frontend runs
+(``pytorch/models.py:630-640``).  ``bn0`` is a
 BatchNorm over the mel bins (axis 2 of the reference's (B, T, F, 1)); a
 model built with ``skip_bn0`` (VGGish, whose reference comments it out)
 has no such module and no tensors of it.
@@ -24,7 +29,8 @@ from sed_tpu_torch.ops.logmel_kernel import fused_logmel
 
 
 class SedFeatureBase(nn.Module):
-    """Waveform (B, samples) -> normalised log-mel (B, 1, T, F).
+    """Waveform (B, samples) -> normalised log-mel (B, 1, T, F), or
+    gammatone features (B, F, T) -> normalised (B, 1, T, F).
 
     BatchNorm momentum 0.1 in torch is flax's 0.9; eps 1e-5 as in the
     reference.
@@ -38,10 +44,10 @@ class SedFeatureBase(nn.Module):
     def __init__(self, cfg, feature_type: str = 'logmel',
                  skip_bn0: bool = False):
         super().__init__()
-        if feature_type != 'logmel':
-            raise NotImplementedError(
-                f'feature_type {feature_type!r}: only logmel is ported')
+        if feature_type not in ('logmel', 'gamma'):
+            raise ValueError(f'unsupported feature_type: {feature_type}')
         self.cfg = cfg
+        self.feature_type = feature_type
         self.bn0 = None if skip_bn0 else BatchNorm(cfg.mel_bins)
 
     def compute_features(self, wav: torch.Tensor,
@@ -49,10 +55,13 @@ class SedFeatureBase(nn.Module):
                          timeshift: bool = False, spec_augment: bool = True,
                          generator: Optional[torch.Generator] = None
                          ) -> torch.Tensor:
-        x = fused_logmel(wav, self.cfg)                     # (B, T, F)
+        if self.feature_type == 'logmel':
+            x = fused_logmel(wav, self.cfg).transpose(1, 2)  # (B, F, T)
+        else:
+            x = wav                                          # (B, F, T)
         if self.bn0 is not None:
-            x = self.bn0(x.transpose(1, 2)).transpose(1, 2)
-        x = x[:, None]                                      # (B, 1, T, F)
+            x = self.bn0(x)
+        x = x.transpose(1, 2)[:, None]                      # (B, 1, T, F)
         if not self.training:
             return x
         if spec_augment:

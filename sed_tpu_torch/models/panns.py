@@ -4,7 +4,8 @@
 6 ConvBlocks (time / 32) with dropout 0.2 after each, a 3-wide max + avg
 temporal smoothing, fc 2048 -> 2048 + ReLU between dropouts of 0.5, the
 attention head, x32 interpolation, padded to ``samples // hop`` frames
-(1000 for a 10 s clip).
+(1000 for a 10 s clip), or to ``T - 1`` for T gammatone frames (993 for a
+packed 10 s clip).
 
 The 3-wide pools pad one frame each side: the max pool with -inf, the
 average pool with zeros that it counts (the edges divide by 3), as
@@ -44,7 +45,8 @@ class Cnn14DecisionLevelAtt(SedFeatureBase):
                 mixup_lambda: Optional[torch.Tensor] = None,
                 timeshift: bool = False, spec_augment: bool = True,
                 generator: Optional[torch.Generator] = None) -> dict:
-        frames_num = wav.shape[-1] // self.cfg.hop_size
+        frames_num = (wav.shape[-1] // self.cfg.hop_size
+                      if self.feature_type == 'logmel' else wav.shape[-1] - 1)
         x = self.compute_features(wav, mixup_lambda, timeshift,
                                   spec_augment, generator)
         last = len(self.conv_channels) - 1

@@ -71,6 +71,16 @@ def check_device(device) -> torch.device:
     return device
 
 
+def refuse_features(feature_type: str, what: str) -> None:
+    """Serving feeds waveforms: a model on packed gammatone features
+    (``feature_type='gamma'``) cannot run there.  ``sed_tpu`` fails on
+    it too, deep in the forward; this raises up front."""
+    if feature_type != 'logmel':
+        raise ValueError(
+            f"{what} feeds waveforms; a feature_type={feature_type!r} model "
+            'takes packed features (evaluate it with inference_prob)')
+
+
 def window_starts(duration: float, sample_duration: int,
                   overlap: bool, step: Optional[float] = None
                   ) -> List[float]:
@@ -110,6 +120,8 @@ class SedInferenceEngine:
                  sed_params: config.SedParams = config.PREDICT_SED_PARAMS,
                  batch_size: int = 32,
                  labels: Sequence[str] = config.LABELS):
+        refuse_features(getattr(model, 'feature_type', 'logmel'),
+                        'SedInferenceEngine')
         self.device = check_device(device)
         self.model = model.to(self.device).eval()
         self.cfg = cfg

@@ -407,3 +407,83 @@ def test_cuda_family_dropouts_draw_from_the_generator(device, name):
     a, b, c = run(1), run(1), run(2)
     assert torch.isfinite(a).all()
     assert torch.equal(a, b) and not torch.equal(a, c)
+
+
+@CFGS
+def test_cuda_fft_gtgram_batch_matches_cpu_and_float64(device, cfg):
+    """``fft_gtgram_batch`` on the card: the CPU's result and the numpy
+    float64 ``fft_gtgram`` within 2e-5 of each clip's largest value (fp32
+    sums of n_fft products; ``chip_smoke.py`` measured up to 6.1e-6 at
+    32 kHz), trailing zero column kept."""
+    from sed_tpu_torch.dsp import gammatone as gt
+    args = (cfg.sample_rate, cfg.window_size / cfg.sample_rate,
+            cfg.hop_size / cfg.sample_rate, cfg.mel_bins, cfg.fmin)
+    nfft, _, nhop = gt._fft_gtgram_geometry(*args[:3])
+    x = _rows(cfg, 4, 3.0, seed=5)[:, :nfft + 200 * nhop]
+    got = gt.fft_gtgram_batch(torch.from_numpy(x).to(device), *args).cpu()
+    cpu = gt.fft_gtgram_batch(torch.from_numpy(x), *args)
+    assert got.shape == (4, cfg.mel_bins, 201)
+    for i in range(4):
+        gold = gt.fft_gtgram(x[i].astype(np.float64), *args)
+        top = np.abs(gold).max()
+        assert np.abs(got[i].numpy() - gold).max() <= 2e-5 * top
+        assert (got[i] - cpu[i]).abs().max().item() <= 2e-5 * top
+        assert not got[i, :, -1].any()
+
+
+def test_cuda_gamma_model_matches_cpu(device):
+    """A gamma model on the card: packed features through the GRU model,
+    the CPU's outputs within 1e-4, and no log-mel launch."""
+    from sed_tpu_torch.dsp import gammatone as gt
+    from sed_tpu_torch.models.blocks import init_weights
+    from sed_tpu_torch.models.registry import get_model
+    cfg = config.AUDIO_16K
+    clips = _rows(cfg, 3, 10.0, seed=8)
+    feats = np.stack([gt.fft_gtgram_db(c, cfg).astype(np.int16)
+                      for c in clips])
+    x = torch.from_numpy(feats).float() / 32767.0
+    model = init_weights(get_model(MODEL, cfg, feature_type='gamma'),
+                         torch.Generator().manual_seed(4))
+    # a trained bn0's statistics: the features' per-bin moments
+    model.bn0.running_mean.copy_(x.mean(dim=(0, 2)))
+    model.bn0.running_var.copy_(x.var(dim=(0, 2)))
+    with torch.inference_mode():
+        want = model(x)
+        fused_logmel.launches = 0
+        got = model.to(device)(x.to(device))
+    assert fused_logmel.launches == 0
+    assert got['framewise_output'].shape == (3, 1000, 25)
+    for key in ('framewise_output', 'clipwise_output'):
+        assert (got[key].cpu() - want[key]).abs().max().item() <= 1e-4, key
+
+
+def test_cuda_cqt_frontend_matches_cpu(device):
+    """``CQTFrontend`` on the card against float64: within 1e-2 dB plus
+    the CPU float32 module's own error (``tests/test_torch_frontends.py``'s
+    bound)."""
+    from sed_tpu_torch.dsp.cqt import CQTFrontend
+    cfg = config.AUDIO_16K
+    x = torch.from_numpy(_rows(cfg, 4, 2.0, seed=9))
+    fe_gpu = CQTFrontend(cfg)
+    assert fe_gpu.cq_mat.device.type == 'cuda'
+    got = fe_gpu(x.to(device)).cpu()
+    cpu = CQTFrontend(cfg, device='cpu')(x)
+    f64 = CQTFrontend(cfg, device='cpu').double()(x.double())
+    assert got.shape == (4, 201, 80)
+    own = (cpu.double() - f64).abs().max().item()
+    assert (got.double() - f64).abs().max().item() <= 1e-2 + own
+
+
+def test_cuda_istft_round_trip(device):
+    """``istft(stft(x))`` on the card gives x back within 2e-3
+    (``tests/test_transforms.py``'s bound)."""
+    from sed_tpu_torch.dsp import filters
+    from sed_tpu_torch.dsp import transforms as tr
+    cfg = config.AUDIO_16K
+    x = torch.from_numpy(_rows(cfg, 3, 2.0, seed=11)).to(device)
+    mat = torch.from_numpy(filters.stft_matrices(cfg.window_size)).float()
+    re, im = fe.stft(x, mat.to(device), cfg.hop_size)
+    back = tr.istft(re, im, cfg.window_size, cfg.hop_size,
+                    length=x.shape[1])
+    assert back.device.type == 'cuda' and back.shape == x.shape
+    assert (back - x).abs().max().item() <= 2e-3

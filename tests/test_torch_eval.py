@@ -22,7 +22,6 @@ import numpy as np
 import pytest
 import torch
 
-from sed_tpu.cli import features as features_cli
 from sed_tpu.cli import main_strong as jax_main_strong
 from sed_tpu.cli import optimize_thresholds as jax_opt
 from sed_tpu.cli import predict as jax_predict
@@ -32,6 +31,7 @@ from sed_tpu.eval.evaluator import Evaluator as JaxEvaluator
 from sed_tpu.models.registry import get_model as jax_get_model
 from sed_tpu.serve import engine as jax_engine
 from sed_tpu.utils.npz_ckpt import load_variables_npz
+from sed_tpu_torch.cli import features as features_cli
 from sed_tpu_torch.cli import main_strong, optimize_thresholds, predict
 from sed_tpu_torch.compat import bench_weights, from_flax
 from sed_tpu_torch.eval.evaluator import Evaluator

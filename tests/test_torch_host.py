@@ -252,10 +252,12 @@ names = [m.name for m in pkgutil.walk_packages(sed_tpu_torch.__path__,
                                                'sed_tpu_torch.')]
 for name in names:
     importlib.import_module(name)
-for cli in ('predict', 'main_strong', 'optimize_thresholds', 'main'):
+for cli in ('cli.predict', 'cli.main_strong', 'cli.optimize_thresholds',
+            'cli.main', 'cli.features', 'cli.calculate_metrics',
+            'cli.download', 'dsp.plot'):
     sys.argv = [cli, '--help']
     try:
-        runpy.run_module('sed_tpu_torch.cli.' + cli, run_name='__main__')
+        runpy.run_module('sed_tpu_torch.' + cli, run_name='__main__')
     except SystemExit as e:
         assert e.code in (0, None), (cli, e.code)
     else:
@@ -268,8 +270,9 @@ print('MODULES', len(names))
 
 def test_port_imports_nothing_of_the_jax_package():
     """Every module of sed_tpu_torch imports (the training modules
-    included), and the four CLIs answer --help, in a process where
-    sed_tpu, jax, jaxlib, flax, optax and orbax cannot be imported."""
+    included), and the seven CLIs and the plot CLI answer --help, in a
+    process where sed_tpu, jax, jaxlib, flax, optax and orbax cannot be
+    imported."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, '-c', _GUARD_SCRIPT], cwd=REPO,
                           env=env, capture_output=True, text=True,
@@ -277,11 +280,14 @@ def test_port_imports_nothing_of_the_jax_package():
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert 'usage:' in proc.stdout
     n = int(proc.stdout.split('MODULES')[1].split()[0])
-    assert n >= 44, proc.stdout[-500:]
+    assert n >= 71, proc.stdout[-500:]
     for name in ('augment.functional', 'losses', 'train.state', 'train.step',
                  'train.checkpoint', 'train.prefetch', 'utils.statistics',
                  'utils.logging_utils', 'cli.main', 'models.encoders',
-                 'models.conformer_zoo', 'models.vggish', 'models.panns'):
+                 'models.conformer_zoo', 'models.vggish', 'models.panns',
+                 'data.metadata', 'data.hdf5_pack', 'data.download',
+                 'cli.features', 'cli.download', 'cli.calculate_metrics',
+                 'dsp.gammatone', 'dsp.plot', 'dsp.cqt', 'dsp.transforms'):
         assert os.path.isfile(os.path.join(
             REPO, 'sed_tpu_torch', *name.split('.')) + '.py'), name
     assert not os.path.exists(os.path.join(REPO, 'sed_tpu_torch',
@@ -434,3 +440,278 @@ def test_logging_and_workspace_copies_equal_sed_tpu(tmp_path):
     assert ws.statistics_path('logmel', '16k') == \
         jws.statistics_path('logmel', '16k')
     assert ws.logs_dir() == jws.logs_dir()
+
+
+# ---------------------------------------------------------------------------
+# data preparation and the gammatone / CQT numpy
+# ---------------------------------------------------------------------------
+
+def test_metadata_readers_and_targets_equal_sed_tpu(tmp_path):
+    """Weak csv readers of every data_type, the strong reader and both
+    targets: sed_tpu's, equal."""
+    from sed_tpu.data import metadata as jax_metadata
+    from sed_tpu_torch.data import metadata
+    labels = config.LABELS
+    comma = tmp_path / 'weak.csv'
+    comma.write_text(f'abc,3.000,13.000,"{labels[0]},{labels[4]}",/m/x\n'
+                     f'def,0.500,10.500,"{labels[2]}",/m/y\n')
+    tab = tmp_path / 'eval.tsv'
+    tab.write_text(f'a.wav\t0.1\t1.0\t{labels[1]}\n'
+                   f'a.wav\t2.0\t3.0\t{labels[3]}\nb.wav\t0\t1\t{labels[1]}\n')
+    strong = tmp_path / 'strong.csv'
+    strong.write_text(f'abc_3.wav,0.25,1.755,{labels[0]}\n'
+                      f'abc_3.wav,5,9.995,{labels[4]}\n'
+                      f'def_0.wav,0,10,{labels[2]}\n')
+    for data_type in ('training', 'testing', 'weak_training',
+                      'strong_training', 'strong_validation',
+                      'strong_fsd50k', 'evaluation'):
+        assert metadata.get_weak_csv_filename(data_type) == \
+            jax_metadata.get_weak_csv_filename(data_type)
+        path = tab if data_type == 'evaluation' else comma
+        got = metadata.read_weak_csv(str(path), data_type)
+        assert got == jax_metadata.read_weak_csv(str(path), data_type)
+    with pytest.raises(ValueError):
+        metadata.get_weak_csv_filename('nope')
+    meta = metadata.read_strong_csv(str(strong))
+    assert meta == jax_metadata.read_strong_csv(str(strong))
+    for name in ('abc_3.wav', 'def_0.wav', 'none.wav'):
+        for fps in (100, 50):
+            assert np.array_equal(
+                metadata.get_strong_target(name, meta, 1000, fps),
+                jax_metadata.get_strong_target(name, meta, 1000, fps))
+    for row in metadata.read_weak_csv(str(comma), 'training'):
+        got = metadata.get_weak_target(row['labels'])
+        assert got.dtype == bool and np.array_equal(
+            got, jax_metadata.get_weak_target(row['labels']))
+
+
+def test_hdf5_pack_helpers_equal_sed_tpu():
+    """``float32_to_int16`` (peak-normalised only when clipping),
+    ``int16_to_float32`` and ``hdf5_filename``."""
+    from sed_tpu.data import hdf5_pack as jax_pack
+    from sed_tpu_torch.data import hdf5_pack
+    rng = np.random.RandomState(1)
+    for x in (rng.uniform(-0.9, 0.9, 1000), rng.uniform(-1.7, 1.3, 1000),
+              np.zeros(10), np.float32([1.0, -1.0, 0.5])):
+        got = hdf5_pack.float32_to_int16(x)
+        assert got.dtype == np.int16
+        assert np.array_equal(got, jax_pack.float32_to_int16(x))
+        assert np.array_equal(hdf5_pack.int16_to_float32(got),
+                              jax_pack.int16_to_float32(got))
+    for args in (('testing', 'gamma', '8k'), ('weak_training', 'logmel',
+                                              '16k', True)):
+        assert hdf5_pack.hdf5_filename(*args) == \
+            jax_pack.hdf5_filename(*args)
+    assert hdf5_pack.hdf5_filename('testing', 'gamma', '32k', True) == \
+        'minidata_testing_gamma_32k.h5'
+
+
+@CFGS
+def test_gammatone_numpy_equals_sed_tpu(quality):
+    """Every numpy function of ``dsp/gammatone.py`` bit for bit at the
+    quality's geometry: the ERB scale, the filter design, the FFT weights
+    and window, the cached analysis matrices, ``fft_gtgram`` at a length
+    whose last frame ends on the clip (the trailing all-zero column) and
+    at one that does not, ``power_to_db_np``, ``gtgram_frames`` and the
+    packed ``fft_gtgram_db`` of a 10 s clip."""
+    from sed_tpu.dsp import gammatone as jgt
+    from sed_tpu_torch.dsp import gammatone as gt
+    cfg = config.QUALITY[quality]
+    fs, ch, fmin = cfg.sample_rate, cfg.mel_bins, cfg.fmin
+    wt, ht = cfg.window_size / fs, cfg.hop_size / fs
+    assert (gt.EAR_Q, gt.MIN_BW) == (jgt.EAR_Q, jgt.MIN_BW)
+    frac = np.linspace(0, 1, 7)
+    assert np.array_equal(gt.erb_point(fmin, fs / 2, frac),
+                          jgt.erb_point(fmin, fs / 2, frac))
+    assert np.array_equal(gt.erb_space(fmin, fs / 2, ch),
+                          jgt.erb_space(fmin, fs / 2, ch))
+    cfs = gt.centre_freqs(fs, ch, fmin)
+    assert np.array_equal(cfs, jgt.centre_freqs(fs, ch, fmin))
+    for width in (1.0, 0.5):
+        assert np.array_equal(gt.make_erb_filters(fs, cfs, width),
+                              jgt.make_erb_filters(fs, cfs, width))
+    x = np.array([-2.5, -0.5, 0.5, 1.49, 2.5])
+    assert np.array_equal(gt._round_half_away(x), jgt._round_half_away(x))
+    assert gt.gtgram_strides(fs, wt, ht, 4000) == \
+        jgt.gtgram_strides(fs, wt, ht, 4000)
+    geometry = gt._fft_gtgram_geometry(fs, wt, ht)
+    assert geometry == jgt._fft_gtgram_geometry(fs, wt, ht)
+    nfft, nwin, nhop = geometry
+    assert np.array_equal(gt.specgram_window(nfft, nwin),
+                          jgt.specgram_window(nfft, nwin))
+    for a, b in zip(gt.fft_weights(nfft, fs, ch, 1, fmin, fs / 2,
+                                   nfft / 2 + 1),
+                    jgt.fft_weights(nfft, fs, ch, 1, fmin, fs / 2,
+                                    nfft / 2 + 1)):
+        assert np.array_equal(a, b)
+    for a, b in zip(gt._fft_gtgram_matrices(fs, wt, ht, ch, fmin),
+                    jgt._fft_gtgram_matrices(fs, wt, ht, ch, fmin)):
+        assert np.array_equal(a, b)
+    clip = bench_corpus.make_clips(1, fs, seconds=10, seed=3)[0] \
+        .astype(np.float64)
+    for samples in (nfft + 40 * nhop, nfft + 40 * nhop + 7):
+        got = gt.fft_gtgram(clip[:samples], fs, wt, ht, ch, fmin)
+        assert np.array_equal(got, jgt.fft_gtgram(clip[:samples], fs, wt,
+                                                  ht, ch, fmin))
+        assert got.shape == (ch, 41)
+        assert (got[:, -1] == 0).all() == (samples == nfft + 40 * nhop)
+        assert np.array_equal(gt.power_to_db_np(got),
+                              jgt.power_to_db_np(got))
+        assert np.array_equal(gt.power_to_db_np(got, top_db=None),
+                              jgt.power_to_db_np(got, top_db=None))
+    assert gt.gtgram_frames(cfg, cfg.audio_samples) == \
+        jgt.gtgram_frames(cfg, cfg.audio_samples) == 994
+    packed = gt.fft_gtgram_db(clip, cfg)
+    assert packed.shape == (ch, 994)
+    assert np.array_equal(packed, jgt.fft_gtgram_db(clip, cfg))
+
+
+def test_time_domain_gtgram_equals_sed_tpu():
+    """``erb_filterbank`` (scipy ``lfilter``) and ``gtgram`` on a short
+    clip, bit for bit."""
+    from sed_tpu.dsp import gammatone as jgt
+    from sed_tpu_torch.dsp import gammatone as gt
+    fs = 8000
+    clip = bench_corpus.make_clips(1, fs, seconds=1, seed=6)[0] \
+        .astype(np.float64)[:4000]
+    coefs = gt.make_erb_filters(fs, gt.centre_freqs(fs, 16, 50.0))
+    assert np.array_equal(gt.erb_filterbank(clip, coefs),
+                          jgt.erb_filterbank(clip, coefs))
+    got = gt.gtgram(clip, fs, 0.04, 0.02, 16, 50.0)
+    assert got.shape == (16, 24)
+    assert np.array_equal(got, jgt.gtgram(clip, fs, 0.04, 0.02, 16, 50.0))
+
+
+def test_cqt_filterbank_equals_sed_tpu():
+    from sed_tpu.dsp import cqt as jax_cqt
+    from sed_tpu_torch.dsp import cqt
+    for q in ('8k', '16k', '32k'):
+        cfg = config.QUALITY[q]
+        for kw in (dict(), dict(n_bins=48, fmin=100.0, bins_per_octave=24)):
+            got = cqt.cqt_filterbank(cfg.sample_rate, cfg.window_size, **kw)
+            assert np.array_equal(got, jax_cqt.cqt_filterbank(
+                cfg.sample_rate, cfg.window_size, **kw))
+    assert np.array_equal(cqt.cqt_frequencies(24, 55.0, 12),
+                          jax_cqt.cqt_frequencies(24, 55.0, 12))
+
+
+def _download_calls(module, tmp_path, monkeypatch):
+    """Run ``module.download_audioset`` on a csv with a good clip, a clip
+    whose resolver fails, one whose resolver prints nothing, one whose
+    ffmpeg fails and one already on disk, with stubbed tools: (the
+    command lists issued, the counts, the files made)."""
+    import subprocess
+    import types
+    tmp_path.mkdir()
+    csv_path = tmp_path / 'segments.csv'
+    csv_path.write_text('# header\n'
+                        'goodclip1,3.000,13.000,"Speech",/m/x\n'
+                        'badclip00,0.000,10.000,"Siren",/m/y\n'
+                        'emptyurl0,1.500,11.500,"Siren",/m/y\n'
+                        'badffmpeg,2.000,12.000,"Siren",/m/y\n'
+                        'goodclip2,7.000,17.000,"Train",/m/z\n')
+    out_dir = tmp_path / 'wavs'
+    out_dir.mkdir()
+    (out_dir / 'goodclip2_7.wav').write_bytes(b'RIFF')
+    monkeypatch.setattr(module.shutil, 'which',
+                        lambda t: None if t == 'yt-dlp' else f'/usr/bin/{t}')
+    calls = []
+
+    def fake_run(argv, **kw):
+        calls.append(list(argv))
+        if argv[0] == 'youtube-dl':
+            ytid = argv[-1].split('v=')[1]
+            if ytid == 'badclip00':
+                raise subprocess.CalledProcessError(1, argv)
+            url = '' if ytid == 'emptyurl0' else f'https://cdn/{ytid}.m4a\n'
+            return types.SimpleNamespace(stdout=url, returncode=0)
+        if 'badffmpeg' in argv[-1]:
+            raise OSError('ffmpeg failed')
+        open(argv[-1], 'wb').write(b'RIFF')
+        return types.SimpleNamespace(returncode=0)
+
+    monkeypatch.setattr(module.subprocess, 'run', fake_run)
+    counts = module.download_audioset(str(csv_path), str(out_dir),
+                                      sample_rate=8000, duration=5.0)
+    calls = [[a.replace(str(tmp_path), '') for a in c] for c in calls]
+    return calls, counts, sorted(os.listdir(out_dir))
+
+
+def test_downloader_issues_sed_tpus_commands(tmp_path, monkeypatch):
+    """The stubbed downloader (youtube-dl as the resolver, as when yt-dlp
+    is absent) issues sed_tpu's command lists in sed_tpu's order, counts
+    the same clips and skips the one on disk; without the tools both
+    raise the same RuntimeError.  Nothing is fetched."""
+    from sed_tpu.data import download as jax_download
+    from sed_tpu_torch.data import download
+    got = _download_calls(download, tmp_path / 'port', monkeypatch)
+    want = _download_calls(jax_download, tmp_path / 'jax', monkeypatch)
+    assert got == want
+    calls, counts, files = got
+    assert counts == {'downloaded': 1, 'failed': 3}
+    assert files == ['goodclip1_3.wav', 'goodclip2_7.wav']
+    assert calls[1] == ['ffmpeg', '-y', '-ss', '3.0', '-i',
+                        'https://cdn/goodclip1.m4a', '-t', '5.0', '-ar',
+                        '8000', '-ac', '1', '/wavs/goodclip1_3.wav']
+    for module in (download, jax_download):
+        monkeypatch.setattr(module.shutil, 'which', lambda t: None)
+        with pytest.raises(RuntimeError, match='yt-dlp/youtube-dl and '
+                                               'ffmpeg on PATH'):
+            module.download_audioset(str(tmp_path / 'port' /
+                                         'segments.csv'), str(tmp_path))
+
+
+def test_download_cli_paths_equal_sed_tpu(tmp_path, monkeypatch):
+    """The download CLI reads ``<workspace>/metadata/{data_type}_set.csv``
+    and writes to ``<workspace>/dataset/<data_type>``, as sed_tpu's."""
+    from sed_tpu.cli import download as jax_cli
+    from sed_tpu_torch.cli import download as cli
+    seen = []
+    for module in (cli, jax_cli):
+        monkeypatch.setattr(
+            module, 'download_audioset',
+            lambda c, o: seen.append((c, o)) or {'downloaded': 0,
+                                                 'failed': 0})
+        assert module.main(['--workspace', str(tmp_path), '--data_type',
+                            'testing']) == 0
+    assert seen[0] == seen[1] == (
+        str(tmp_path / 'metadata' / 'testing_set.csv'),
+        str(tmp_path / 'dataset' / 'testing'))
+
+
+def test_calculate_metrics_cli_equals_sed_tpu(tmp_path, capsys):
+    """``calculate_metrics`` on a small predictions pickle (with targets)
+    and its reference csv: the port's CLI prints and returns sed_tpu's
+    clipwise and segment-based metrics."""
+    import pickle
+    from sed_tpu.cli import calculate_metrics as jax_cli
+    from sed_tpu_torch.cli import calculate_metrics as cli
+    rng = np.random.RandomState(4)
+    names = [f'c{i}_0.wav' for i in range(3)]
+    out = {'audio_name': np.array(names),
+           'clipwise_output': rng.rand(3, 25).astype(np.float32),
+           'framewise_output': _framewise(4, 3, 1000),
+           'target': (rng.rand(3, 25) > 0.7).astype(np.float32)}
+    ds = tmp_path / 'ds'
+    (ds / 'metadata').mkdir(parents=True)
+    with open(ds / 'metadata' / 'groundtruth_strong_label_testing_set.csv',
+              'w', newline='') as f:
+        csv.writer(f).writerows([[n, 0.5 + i, 3.0 + i, config.LABELS[i]]
+                                 for i, n in enumerate(names)])
+    results, printed = [], []
+    for module, ws in ((cli, tmp_path / 'ws'), (jax_cli, tmp_path / 'wsj')):
+        args = module.get_parser().parse_args([
+            'calculate_metrics', '--dataset_dir', str(ds), '--workspace',
+            str(ws), '--model_type', 'Cnn_9layers_FrameAvg',
+            '--audio_16k', '--feature_type', 'gamma'])
+        w = Workspace(root=str(ws), model_type='Cnn_9layers_FrameAvg',
+                      augmentation='none')
+        with open(w.predictions_path('test_predictions_gamma_16k.pkl',
+                                     create=True), 'wb') as f:
+            pickle.dump(out, f)
+        capsys.readouterr()
+        results.append(module.calculate_metrics(args))
+        printed.append(capsys.readouterr().out)
+    assert repr(results[0]) == repr(results[1])
+    assert printed[0] == printed[1] and 'SED micro ER' in printed[0]
+    assert set(results[0]) == {'clipwise', 'sed'}

@@ -6,7 +6,7 @@ into flax variables that give the port model's outputs within 1e-5.
 
 The dataset is ``tests/test_torch_eval.py``'s layout (bench-corpus clips
 of 10 s with their events as strong labels), packed with
-``sed_tpu.cli.features``; the model is the full-width
+``sed_tpu_torch.cli.features``; the model is the full-width
 ``Cnn_9layers_FrameAvg`` at batch 2, as ``sed_tpu``'s own CLI test uses.
 """
 
@@ -21,9 +21,9 @@ import numpy as np
 import pytest
 import torch
 
-from sed_tpu.cli import features as features_cli
 from sed_tpu.config import AUDIO_16K
 from sed_tpu.data import audio_io
+from sed_tpu_torch.cli import features as features_cli
 from sed_tpu_torch.cli import common, main, main_strong
 from sed_tpu_torch.train import checkpoint as ckpt
 from sed_tpu_torch.utils.paths import Workspace
