@@ -115,12 +115,36 @@ checks it against the same engine on the CPU.  Phases:
     dB of the CPU's own error), timed;
     ``dsp/transforms.istft`` of the STFT of those clips on the card
     against the clips (2e-3), timed.
+16. the bf16 conv stack (``get_model(compute_dtype=torch.bfloat16)``):
+    the GRU model on the bench checkpoint, ``predict_clips`` on the 64
+    int16 clips against the float32 engine on the card (framewise within
+    0.05, events matched both ways for >= 90% at 0.05 s, ``sed_tpu``'s
+    gate), clips/s over 512 clips bf16 and float32 in turns, a profile of
+    one bf16 batch by op group; training at phase 13's settings from the
+    fresh init, bf16 with the dynamic loss scale and float32 from the same
+    init, batch stream and generator, 25 steps each (steps/s, clips/s,
+    peak memory, skipped steps, a profile of one bf16 step), every step's
+    loss within ``BF16_LOSS_RTOL`` of float32's;
+17. multi-device on the one card: (a) ``SedInferenceEngine(devices=
+    ['cuda:0', 'cuda:0'])`` on the 64 int16 and adpcm4 clips, events and
+    XML identical to one device, clips/s; (b) the data-parallel step
+    (gradient and BatchNorm all-reduces) in a 1-rank NCCL group at phase
+    13's batch against the single-process step, under phase 13's 1-step
+    bounds; (c) two gloo ranks on cuda:0 (spawned), weak 96 + strong 32
+    rows each, one step against the single-process step on the global
+    batch: parameters under the 1-step bounds, each rank's log-mel
+    launches; in (b) and (c) the dp step's gradients no further from the
+    float64 step than ``DP_GRAD_FACTOR`` times the single-process step's
+    (or 1e-5 of each tensor's max |g|); (d)
+    ``parallel/dryrun.dryrun_multichip(4)`` in gloo processes on the
+    host's CPU.
 
 ``python3 chip_smoke.py --families-only`` runs phases 1, 2 and 14 alone,
-``--gamma-only`` phases 1, 2 and 15, and neither prints a result line
-(for work on that phase).
+``--gamma-only`` phases 1, 2 and 15, ``--bf16-only`` phases 1, 2 and 16,
+``--parallel-only`` phases 1, 2 and 17 (the last two may be given
+together), and none prints a result line (for work on that phase).
 
-Phases 4, 7, 8, 9, 10, 11, 12, 13 and 14 drive the main paths: each sets the
+Phases 4, 7, 8, 9, 10, 11, 12, 13, 14, 16 and 17 drive the main paths: each sets the
 kernel's launch count to 0 just before and reads it just after, and
 fails if the kernel was not launched.  Phase 15 drives the gamma path the
 same way and fails if log-mel was launched there: that path has no
@@ -133,6 +157,7 @@ is the JSON result; the line before it names the card and power limit.
 """
 
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -416,13 +441,14 @@ def train_batches(pools, seed: int, weak_bs: int, strong_bs: int):
 
 
 def new_state(model_type, cfg, device, seed: int = 0,
-              feature_type: str = 'logmel'):
+              feature_type: str = 'logmel', compute_dtype=None):
     """A fresh registry model (``init_weights`` from a CPU generator
     seeded ``seed``) on ``device`` with its AMSGrad at lr 1e-3."""
     import torch
     from sed_tpu_torch.models.registry import get_model
     from sed_tpu_torch.train.state import create_train_state
-    model = get_model(model_type, cfg, feature_type=feature_type)
+    model = get_model(model_type, cfg, feature_type=feature_type,
+                      compute_dtype=compute_dtype)
     state = create_train_state(model, 1e-3, torch.Generator().manual_seed(seed))
     model.to(device)
     return state
@@ -430,23 +456,11 @@ def new_state(model_type, cfg, device, seed: int = 0,
 
 def state_diff(a, b) -> dict:
     """Parameters, BatchNorm buffers and AMSGrad moments of two train
-    states: max, mean and share beyond 1e-5 of the parameter differences;
-    the buffers' largest difference (relative above 1); each moment's
+    states: ``state_dict_diff`` of their models, and each moment's
     largest difference over its tensor's scale (+ 1e-3 of the largest)."""
-    import torch
+    out = state_dict_diff(a.model.state_dict(), b.model.state_dict())
     pa = dict(a.model.named_parameters())
     pb = dict(b.model.named_parameters())
-    d = torch.cat([(pa[k].detach().double().cpu()
-                    - pb[k].detach().double().cpu()).abs().reshape(-1)
-                   for k in pa])
-    out = {'param_max': d.max().item(), 'param_mean': d.mean().item(),
-           'param_share_1e-5': (d > 1e-5).double().mean().item()}
-    bn = 0.0
-    for (k, x), y in zip(a.model.named_buffers(), b.model.buffers()):
-        if 'running' in k:
-            x, y = x.double().cpu(), y.double().cpu()
-            bn = max(bn, ((x - y).abs() / y.abs().clamp_min(1.0)).max().item())
-    out['bn_buffers'] = bn
     for name in ('mu', 'nu', 'nu_max'):
         ma = {k: a.optimizer.state[p][name].double().cpu()
               for k, p in pa.items()}
@@ -458,6 +472,24 @@ def state_diff(a, b) -> dict:
                         for k in ma)
     out['steps'] = (a.step, b.step)
     return out
+
+
+def state_dict_diff(a: dict, b: dict) -> dict:
+    """Two state dicts of one training step: max, mean and share beyond
+    1e-5 of the parameter differences, and the BatchNorm buffers' largest
+    difference (relative above 1)."""
+    import torch
+
+    def d64(k):
+        return a[k].double().cpu() - b[k].double().cpu()
+    params = [k for k in b if 'running' not in k and 'num_batches' not in k]
+    d = torch.cat([d64(k).abs().reshape(-1) for k in params])
+    return {'param_max': d.max().item(), 'param_mean': d.mean().item(),
+            'param_share_1e-5': (d > 1e-5).double().mean().item(),
+            'bn_buffers': max((d64(k).abs() / b[k].double().cpu().abs()
+                               .clamp_min(1.0)).max().item()
+                              for k in b if 'running' in k),
+            'steps': (1, 1)}
 
 
 # Tolerances of two train states that took the same steps on two
@@ -486,7 +518,8 @@ def check_state_diff(diff: dict, tag: str, phase: int = 13,
     assert diff['param_mean'] < tol['param_mean'], diff
     assert diff['param_share_1e-5'] < tol['share'], diff
     assert diff['bn_buffers'] < tol['bn'], diff
-    assert max(diff[k] for k in ('mu', 'nu', 'nu_max')) < tol['moments'], diff
+    moments = [diff[k] for k in ('mu', 'nu', 'nu_max') if k in diff]
+    assert max(moments, default=0.0) < tol['moments'], diff
 
 
 # the aten ops whose device time (their kernels') makes each group of a
@@ -582,7 +615,6 @@ def train_phase(card: str, dev, cfg, pcm):
     import argparse
     import numpy as np
     import torch
-    from sed_tpu_torch import losses as losses_lib
     from sed_tpu_torch.cli import common
     from sed_tpu_torch.compat.from_flax import load_checkpoint
     from sed_tpu_torch.dsp.frontend import logmel_plain
@@ -590,19 +622,13 @@ def train_phase(card: str, dev, cfg, pcm):
     from sed_tpu_torch.serve.engine import SedInferenceEngine
     from sed_tpu_torch.train.checkpoint import save_best_checkpoint
     from sed_tpu_torch.train.prefetch import device_prefetch
-    from sed_tpu_torch.train.step import (LossScaleState, init_loss_scale,
-                                          make_train_step)
+    from sed_tpu_torch.train.step import LossScaleState, init_loss_scale
     from sed_tpu_torch.utils.paths import Workspace
     model_type = 'Cnn_9layers_Gru_FrameAtt'
-    pools = (train_data(cfg, WEAK_BS, seed=51), train_data(cfg, STRONG_BS,
-                                                          seed=52))
+    pools = train_pools(cfg)
 
-    def step_for(state, mixup=True, augment=True, loss_scale=None):
-        return make_train_step(
-            state.model, state.optimizer, losses_lib.clip_bce,
-            losses_lib.frame_bce, mixup=mixup, timeshift=augment,
-            spec_augment=augment, loss_scale=loss_scale,
-            wire_samples=cfg.audio_samples)
+    def step_for(state, **kw):
+        return train_step(state, cfg, **kw)
 
     # the kernel at the training shapes
     out = {}
@@ -917,8 +943,7 @@ def families_phase(card: str, dev, cfg, pcm) -> int:
     torch.cuda.empty_cache()
 
     # -- training: BCE losses and logits losses ---------------------------
-    pools = (train_data(cfg, WEAK_BS, seed=51), train_data(cfg, STRONG_BS,
-                                                          seed=52))
+    pools = train_pools(cfg)
 
     def to(batch, d):
         return {k: torch.from_numpy(v).to(d) for k, v in batch.items()}
@@ -1226,6 +1251,404 @@ def gamma_phase(card: str, dev) -> None:
     assert back.is_cuda and i_err <= 2e-3
 
 
+@functools.lru_cache(maxsize=None)
+def train_pools(cfg) -> tuple:
+    """Phase 13's pools: weak and strong ``train_data`` of 192 and 64
+    clips, made once a process."""
+    return (train_data(cfg, WEAK_BS, seed=51),
+            train_data(cfg, STRONG_BS, seed=52))
+
+
+def train_step(state, cfg, mixup=True, augment=True, loss_scale=None,
+               group=None):
+    """The joint step of ``state`` with phase 13's losses (clip_bce,
+    frame_bce) and augmentation (mixup; with ``augment`` timeshift and
+    SpecAugment), int16 wire; ``group`` makes it data-parallel."""
+    from sed_tpu_torch import losses as losses_lib
+    from sed_tpu_torch.train.step import make_train_step
+    return make_train_step(
+        state.model, state.optimizer, losses_lib.clip_bce,
+        losses_lib.frame_bce, mixup=mixup, timeshift=augment,
+        spec_augment=augment, loss_scale=loss_scale,
+        wire_samples=cfg.audio_samples, group=group)
+
+
+# the bf16 serving gate, sed_tpu's own (tests/test_serve.py:796-852):
+# framewise within 0.05 of the float32 engine, events (label, onset and
+# offset within 0.05 s) matched both ways for at least 90%
+BF16_FRAMEWISE_ATOL = 0.05
+BF16_EVENT_TOL_S = 0.05
+BF16_EVENT_SHARE = 0.9
+# "train correct" for bf16 (PERF.md §2): each of 25 steps' loss of the
+# bf16 run (dynamic loss scale) within this share of the float32 run's
+# from the same init, batches and generator.  Set from two CPU runs (weak
+# 12 + strong 4 rows a step, mixup, SpecAugment and timeshift on) before
+# the first card run: at most 1.7e-3 (conv channels 16-128, GRU 64, 2 s
+# clips) and 9.3e-3 (full width, 1 s clips) over 25 steps.
+BF16_LOSS_RTOL = 2e-2
+# casts to and from bf16 (and host uploads) in a profile by op group
+CAST_GROUP = (('casts and copies', ('aten::_to_copy',)),)
+
+
+def event_match(a, b, tol: float = BF16_EVENT_TOL_S) -> float:
+    """Share of the events of two per-clip lists that have an event of the
+    same clip and label on the other side with onset and offset within
+    ``tol`` s, counted both ways."""
+    def flat(per_clip):
+        return [(i, e['event_label'], e['onset'], e['offset'])
+                for i, evs in enumerate(per_clip) for e in evs]
+
+    def matched(src, dst):
+        return sum(any(j == i and lb2 == lb and abs(on2 - on) <= tol
+                       and abs(off2 - off) <= tol
+                       for j, lb2, on2, off2 in dst)
+                   for i, lb, on, off in src)
+    fa, fb = flat(a), flat(b)
+    return (matched(fa, fb) + matched(fb, fa)) / max(1, len(fa) + len(fb))
+
+
+def timed_train(model_type, cfg, dev, compute_dtype=None, steps: int = 25,
+                warmup: int = 5) -> dict:
+    """``steps`` steps of a fresh ``model_type`` at phase 13's batch, batch
+    stream and generator (``device_prefetch``), the dynamic loss-scaled
+    step when ``compute_dtype`` is set; the timed steps are those after
+    ``warmup``.  Returns the initial state dict, the state, one step
+    ``run(weak, strong, generator)``, the losses, the skipped steps, the
+    wall of the timed steps, the peak memory and the kernel launches."""
+    import torch
+    from sed_tpu_torch.ops.logmel_kernel import fused_logmel
+    from sed_tpu_torch.train.prefetch import device_prefetch
+    from sed_tpu_torch.train.step import init_loss_scale
+    state = new_state(model_type, cfg, dev, compute_dtype=compute_dtype)
+    init = {k: v.clone() for k, v in state.model.state_dict().items()}
+    scaled = compute_dtype is not None
+    step = train_step(state, cfg, loss_scale='dynamic' if scaled else None)
+    scale = [init_loss_scale()]
+
+    def run(weak, strong, generator):
+        if not scaled:
+            return step(weak, strong, generator)
+        metrics, scale[0] = step(weak, strong, generator, scale[0])
+        return metrics
+
+    generator = torch.Generator(device=dev).manual_seed(1234)
+    batches = device_prefetch(train_batches(train_pools(cfg), 7, WEAK_BS,
+                                            STRONG_BS), size=2, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fused_logmel.launches = 0
+    losses, skipped = [], 0
+    for i in range(steps):
+        if i == warmup:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        weak, strong = next(batches)
+        metrics = run(weak, strong, generator)
+        losses.append(metrics['loss'])
+        skipped += not metrics.get('grads_finite', True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = dict(init=init, state=state, run=run, generator=generator,
+               batch=next(batches), losses=torch.stack(losses).cpu(),
+               skipped=skipped, wall=wall, launches=fused_logmel.launches,
+               peak=torch.cuda.max_memory_allocated(dev), scale=scale[0])
+    batches.close()
+    return out
+
+
+def bf16_phase(card: str, dev, cfg, pcm, gpu) -> int:
+    """Phase 16; returns the log-mel launches of its main-path runs."""
+    import numpy as np
+    import torch
+    from sed_tpu_torch.compat.from_flax import load_npz
+    from sed_tpu_torch.ops.logmel_kernel import fused_logmel
+    from sed_tpu_torch.serve.engine import SedInferenceEngine
+    model_type = 'Cnn_9layers_Gru_FrameAtt'
+    ckpt = os.path.join(REPO, 'tools', 'bench_checkpoint.npz')
+    b16 = SedInferenceEngine(load_npz(ckpt, model_type, cfg, dev,
+                                      compute_dtype=torch.bfloat16),
+                             cfg, dev, batch_size=32)
+    fused_logmel.launches = 0
+    ev_b, _ = b16.predict_clips(pcm)
+    launches = fused_logmel.launches
+    assert launches > 0, 'the bf16 path did not launch the log-mel kernel'
+    ev_f, _ = gpu.predict_clips(pcm)
+    fw_b, cw_b = b16.infer_framewise(pcm)
+    fw_f, cw_f = gpu.infer_framewise(pcm)
+    assert fw_b.shape == fw_f.shape and np.isfinite(fw_b).all()
+    fw_err = float(np.abs(fw_b - fw_f).max())
+    cw_err = float(np.abs(cw_b - cw_f).max())
+    share = event_match(ev_b, ev_f)
+    print(f'[16] bf16 conv stack, predict_clips on {dev}: {len(pcm)} int16 '
+          f'clips, {sum(map(len, ev_b))} events (float32: '
+          f'{sum(map(len, ev_f))}), {share!r} matched both ways within '
+          f'{BF16_EVENT_TOL_S} s (gate {BF16_EVENT_SHARE}); max |framewise '
+          f'bf16 - float32| {fw_err!r} (gate {BF16_FRAMEWISE_ATOL}), '
+          f'clipwise {cw_err!r}; log-mel kernel launches {launches}')
+    assert fw_err < BF16_FRAMEWISE_ATOL, fw_err
+    assert share >= BF16_EVENT_SHARE, share
+    bench = np.concatenate([pcm] * 8)                      # 512 clips
+    rates = {'bf16': [], 'f32': []}
+    for tag in ('f32', 'bf16', 'bf16', 'f32'):
+        rates[tag] += clips_per_s(b16 if tag == 'bf16' else gpu, bench,
+                                  runs=2)[0]
+    print(f'[16] predict_clips 512 int16 clips, batch 32, on {card}: bf16 '
+          f'{[round(r, 1) for r in rates["bf16"]]} clips/s, float32 '
+          f'{[round(r, 1) for r in rates["f32"]]} (2 runs each, in turns '
+          'float32, bf16, bf16, float32)')
+    by = profile_by_group(lambda: b16.predict_clips(pcm[:32]),
+                          SERVE_OP_GROUPS + CAST_GROUP, '16',
+                          'one bf16 predict_clips batch of 32')
+    print(f'[16] bf16 serving batch: conv stack {by["conv stack"]:.0f} us, '
+          f'{by["conv stack"] / by["busy"]:.4f} of the device time')
+
+    # training at configs[4], bf16 and float32 from the same init, batches
+    # and generator
+    runs = {}
+    for tag, dtype in (('bf16', torch.bfloat16), ('f32', None)):
+        r = runs[tag] = timed_train(model_type, cfg, dev, dtype)
+        launches += r['launches']
+        print(f'[16] train {model_type} {tag} on {card}: weak {WEAK_BS} + '
+              f'strong {STRONG_BS} clips of 10 s a step, '
+              f'specaugment_timeshift_mixup; 20 timed steps (after 5) in '
+              f'{r["wall"]:.3f} s: {20 / r["wall"]:.3f} steps/s, '
+              f'{20 * (WEAK_BS + STRONG_BS) / r["wall"]:.1f} clips/s; peak '
+              f'memory {r["peak"] / 2**30:.2f} GiB; skipped steps '
+              f'{r["skipped"]}' + (f', loss scale {r["scale"].scale}'
+                                   if dtype else '')
+              + f'; log-mel kernel launches {r["launches"]} (25 steps)')
+        assert torch.isfinite(r['losses']).all(), f'{tag}: a loss is not finite'
+        assert r['launches'] == 2 * 25 and r['state'].step == 25 - r['skipped']
+        if dtype is not None:
+            by = profile_by_group(
+                lambda: r['run'](*r['batch'], r['generator']),
+                TRAIN_OP_GROUPS + CAST_GROUP, '16', 'one bf16 train step')
+            conv = by['conv forward'] + by['conv backward']
+            print(f'[16] bf16 train step: convolutions {conv:.0f} us, '
+                  f'{conv / by["busy"]:.4f} of the device time')
+    assert all(torch.equal(v, runs['f32']['init'][k])
+               for k, v in runs['bf16']['init'].items())
+    assert runs['bf16']['skipped'] == 0
+    lb, lf = runs['bf16']['losses'].double(), runs['f32']['losses'].double()
+    rel = (lb - lf).abs() / lf.abs()
+    print(f'[16] train correct, bf16 against float32 from one init: losses '
+          f'bf16 {lb.tolist()}, float32 {lf.tolist()}; |bf16 - float32| / '
+          f'float32 per step {rel.tolist()}; max {rel.max().item()!r} (gate '
+          f'{BF16_LOSS_RTOL})')
+    assert rel.max().item() <= BF16_LOSS_RTOL, rel.max().item()
+    return launches
+
+
+def grad_diff(got: dict, want: dict) -> float:
+    """The largest over the parameters of |got - want| / max |want| of the
+    tensor, less a floor of 1e-6 of the model's largest gradient:
+    ``att_block.att.bias`` has an exact gradient of 0 (a softmax does not
+    see a shift common to its inputs), float32 noise on both sides."""
+    import torch
+    floor = 1e-6 * max(g.abs().max().item() for g in want.values())
+    return max((((got[k].to(g.device) - g).abs().max() - floor).clamp_min(0)
+                / g.abs().max().clamp_min(1e-30)).item()
+               for k, g in want.items())
+
+
+# The data-parallel step's gradients against the exact (float64) step:
+# no worse than this many times the single-process float32 step's error,
+# or 1e-5 of each tensor's max |g|, whichever is larger.  At phase 13's
+# batch (10 s clips) both float32 steps sit far more than 1e-5 of a
+# tensor's max |g| from float64 in the first blocks, where the BatchNorm
+# backward cancels over ~10^6 elements a channel (phase 17 prints both
+# errors), so 1e-5 between the two float32 steps holds only at the CPU
+# tests' 1 s clips.
+DP_GRAD_FACTOR = 2.0
+
+
+def float64_grads(model_type, cfg, dev, weak: dict, strong: dict,
+                  seed: int) -> dict:
+    """The gradients of one single-process step on the global batch with
+    the model, the wire decode and log-mel (float64 matrix products in
+    place of the kernel) in float64, the same draws: the exact step the
+    float32 steps are held to."""
+    from unittest import mock
+    import torch
+    import sed_tpu_torch.dsp.frontend as fe
+    state = new_state(model_type, cfg, dev)
+    state.model.double()
+
+    def logmel64(wav, cfg):
+        stft, mel = fe.frontend_matrices(cfg, wav.device)
+        spec = fe.spectrogram(wav, stft.double(), cfg.hop_size,
+                              center=cfg.center, pad_mode=cfg.pad_mode)
+        return fe.power_to_db(spec @ mel.double(), ref=cfg.ref,
+                              amin=cfg.amin)
+
+    def to64(batch):
+        out = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        out['waveform'] = out['waveform'].double() / 32767.0
+        return out
+    with mock.patch('sed_tpu_torch.models.base.fused_logmel', logmel64), \
+            mock.patch('sed_tpu_torch.ops.wire.dequant_wire',
+                       lambda w, samples=None: w):
+        train_step(state, cfg)(to64(weak), [to64(strong)], torch.Generator(
+            device=dev).manual_seed(seed))
+    return {k: p.grad.cpu() for k, p in state.model.named_parameters()}
+
+
+def check_dp_grads(tag: str, got: dict, single: dict, exact: dict) -> None:
+    """Print and gate a dp step's gradients against the single-process
+    float32 step's and the exact step's (``DP_GRAD_FACTOR``)."""
+    g_dp, g_one = grad_diff(got, exact), grad_diff(single, exact)
+    gate = max(1e-5, DP_GRAD_FACTOR * g_one)
+    print(f'[17] {tag}: gradients against float64 (worst tensor, of its max '
+          f'|g|): dp {g_dp!r}, single process {g_one!r} (gate {gate!r}); dp '
+          f'against single process {grad_diff(got, single)!r}')
+    assert g_dp <= gate, (g_dp, g_one)
+
+
+def _dp_rank(rank: int, n: int, store: str, model_type: str, weak: dict,
+             strong: dict, seed: int) -> dict:
+    """Phase 17 (c): one gloo rank on cuda:0, its share of the global
+    batch through the data-parallel step from ``new_state``'s init."""
+    import torch
+    import torch.distributed as dist
+    from sed_tpu_torch.config import AUDIO_16K
+    from sed_tpu_torch.ops.logmel_kernel import fused_logmel
+    from sed_tpu_torch.parallel.mesh import shard_batch
+    from sed_tpu_torch.serve.engine import disable_tf32
+    disable_tf32()
+    dev = torch.device('cuda', 0)
+    dist.init_process_group('gloo', init_method=f'file://{store}',
+                            rank=rank, world_size=n)
+    try:
+        state = new_state(model_type, AUDIO_16K, dev)
+        step = train_step(state, AUDIO_16K, group=dist.group.WORLD)
+        w, s = shard_batch(weak, device=dev), shard_batch(strong, device=dev)
+        fused_logmel.launches = 0
+        metrics = step(w, [s], torch.Generator(device=dev).manual_seed(seed))
+        torch.cuda.synchronize()
+        return {'launches': fused_logmel.launches,
+                'rows': (len(w['waveform']), len(s['waveform'])),
+                'loss': metrics['loss'].item(),
+                'grads': {k: p.grad.cpu()
+                          for k, p in state.model.named_parameters()},
+                'state': {k: v.cpu()
+                          for k, v in state.model.state_dict().items()}}
+    finally:
+        dist.destroy_process_group()
+
+
+def parallel_phase(card: str, dev, cfg, pcm, gpu, adpcm) -> int:
+    """Phase 17; returns the log-mel launches of its main-path runs (the
+    ranks' of (c) included)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from sed_tpu_torch.ops.logmel_kernel import fused_logmel
+    from sed_tpu_torch.parallel.distributed import spawn_ranks
+    from sed_tpu_torch.parallel.dryrun import dryrun_multichip
+    from sed_tpu_torch.serve.engine import SedInferenceEngine
+    model_type = 'Cnn_9layers_Gru_FrameAtt'
+
+    # (a) two replicas on the one card
+    two = SedInferenceEngine(gpu.model, cfg, devices=[dev, dev],
+                             batch_size=32)
+    launches = 0
+    for name, wire in (('int16', pcm), ('adpcm4', adpcm)):
+        fused_logmel.launches = 0
+        got = two.predict_clips(wire)
+        launched = fused_logmel.launches
+        assert launched > 0, f'the replicas did not launch the kernel ({name})'
+        launches += launched
+        assert got == gpu.predict_clips(wire), \
+            f'{name}: the replicated engine differs from one device'
+        print(f'[17] (a) SedInferenceEngine(devices=[{dev}, {dev}]) '
+              f'predict_clips of {len(wire)} {name} clips: '
+              f'{sum(map(len, got[0]))} events, events and XML identical to '
+              f'the single-device engine; kernel launches {launched}')
+    bench = np.concatenate([pcm] * 8)
+    rates = {'one': [], 'two': []}
+    for tag in ('one', 'two', 'two', 'one'):
+        rates[tag] += clips_per_s(two if tag == 'two' else gpu, bench,
+                                  runs=2)[0]
+    print(f'[17] (a) predict_clips 512 int16 clips, batch 32, on {card}: two '
+          f'replicas {[round(r, 1) for r in rates["two"]]} clips/s, one '
+          f'device {[round(r, 1) for r in rates["one"]]} (2 runs each, in '
+          'turns)')
+    del two
+
+    # (b) a 1-rank NCCL group: the dp step (gradient and BatchNorm
+    # all-reduces) against the single-process step, both against the
+    # float64 step
+    weak, strong = next(train_batches(train_pools(cfg), 7, WEAK_BS,
+                                      STRONG_BS))
+    strong = strong[0]
+
+    def to(batch):
+        return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    seed = 5
+    exact = float64_grads(model_type, cfg, dev, weak, strong, seed)
+    torch.cuda.empty_cache()
+    states, grads, losses = {}, {}, {}
+    torch.cuda.set_device(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group('nccl', init_method=f'file://{tmp}/store',
+                                rank=0, world_size=1)
+        try:
+            for tag in ('single', 'dp'):
+                state = states[tag] = new_state(model_type, cfg, dev)
+                step = train_step(state, cfg, group=dist.group.WORLD
+                                  if tag == 'dp' else None)
+                fused_logmel.launches = 0
+                losses[tag] = step(to(weak), [to(strong)], torch.Generator(
+                    device=dev).manual_seed(seed))['loss'].item()
+                grads[tag] = {k: p.grad.cpu()
+                              for k, p in state.model.named_parameters()}
+                print(f'[17] (b) {tag} step at weak {WEAK_BS} + strong '
+                      f'{STRONG_BS}: loss {losses[tag]!r}')
+            launches += fused_logmel.launches
+            assert fused_logmel.launches == 2
+        finally:
+            dist.destroy_process_group()
+    check_dp_grads('(b) 1-rank NCCL', grads['dp'], grads['single'], exact)
+    check_state_diff(state_diff(states['dp'], states['single']),
+                     '(b) 1-rank NCCL dp step - single-process step',
+                     phase=17)
+    single_state = {k: v.cpu()
+                    for k, v in states['single'].model.state_dict().items()}
+    del states
+
+    # (c) two gloo ranks on cuda:0, half the batch each, against the
+    # single-process step on the global batch of (b)
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(_dp_rank, 2, (model_type, weak, strong, seed),
+                        timeout=300.0)
+    wall = time.perf_counter() - t0
+    for k, v in ranks[0]['state'].items():
+        assert torch.equal(v, ranks[1]['state'][k]), f'ranks differ at {k}'
+    print(f'[17] (c) 2 gloo ranks on {dev} (spawned, {wall:.1f} s): rows '
+          f'{[r["rows"] for r in ranks]}, log-mel kernel launches per rank '
+          f'{[r["launches"] for r in ranks]}, loss {ranks[0]["loss"]!r} '
+          f'(single process on the global batch {losses["single"]!r}); the '
+          'ranks bit-identical')
+    assert all(r['launches'] == 2 for r in ranks)
+    launches += sum(r['launches'] for r in ranks)
+    check_dp_grads('(c) 2 gloo ranks', ranks[0]['grads'], grads['single'],
+                   exact)
+    assert abs(ranks[0]['loss'] - losses['single']) <= \
+        1e-5 * abs(losses['single'])
+    check_state_diff(state_dict_diff(ranks[0]['state'], single_state),
+                     '(c) 2-rank gloo dp step - single-process step',
+                     phase=17)
+    del ranks, grads, exact
+
+    # (d) the four-stage dry run, on the host's CPU
+    print('[17] (d) CPU dry run: dryrun_multichip(4) in 4 gloo processes on '
+          'the host\'s CPU (not the card)')
+    t0 = time.perf_counter()
+    dryrun_multichip(4)
+    print(f'[17] (d) CPU dry run done in {time.perf_counter() - t0:.1f} s')
+    return launches
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1274,6 +1697,27 @@ def main() -> None:
         gamma_phase(card, dev)
         print(f'[15] gamma phase done in {time.perf_counter() - t15:.1f} '
               's; phases 3-14 were not run: no result')
+        return
+
+    only = {'--bf16-only': 16, '--parallel-only': 17}
+    if only.keys() & set(sys.argv[1:]):
+        cfg = config.AUDIO_16K
+        clips = make_clips(64, cfg.sample_rate, seconds=5, seed=0)
+        pcm = (np.clip(clips, -1, 1) * 32767).astype(np.int16)
+        gpu = SedInferenceEngine(load_npz(
+            os.path.join(REPO, 'tools', 'bench_checkpoint.npz'),
+            'Cnn_9layers_Gru_FrameAtt', cfg, dev), cfg, dev, batch_size=32)
+        for flag, phase in only.items():
+            if flag in sys.argv[1:]:
+                t0 = time.perf_counter()
+                if phase == 16:
+                    bf16_phase(card, dev, cfg, pcm, gpu)
+                else:
+                    parallel_phase(card, dev, cfg, pcm, gpu,
+                                   audio_io.adpcm_encode_np(clips))
+                print(f'[{phase}] phase done in '
+                      f'{time.perf_counter() - t0:.1f} s')
+        print('phases 3-15 were not run: no result')
         return
 
     if '--families-only' in sys.argv[1:]:
@@ -1627,6 +2071,19 @@ def main() -> None:
     gamma_phase(card, dev)
     print(f'[15] gamma phase done in {time.perf_counter() - t15:.1f} s')
 
+    # -- 16. the bf16 conv stack: serving and training ------------------------
+    torch.cuda.empty_cache()
+    t16 = time.perf_counter()
+    n_launch16 = bf16_phase(card, dev, cfg, pcm, gpu)
+    print(f'[16] bf16 phase done in {time.perf_counter() - t16:.1f} s')
+
+    # -- 17. multi-device on the one card, and the CPU dry run ---------------
+    torch.cuda.empty_cache()
+    t17 = time.perf_counter()
+    n_launch17 = parallel_phase(card, dev, cfg, pcm, gpu,
+                                wires['adpcm4'][:len(clips)])
+    print(f'[17] multi-device phase done in {time.perf_counter() - t17:.1f} s')
+
     blocked = [m for m in sys.modules
                if m.split('.')[0] in ('sed_tpu', 'jax', 'jaxlib', 'flax',
                                       'optax', 'orbax')]
@@ -1639,7 +2096,7 @@ def main() -> None:
         'replaces': 'sed_tpu/ops/logmel_kernel.py:48',
         'launches': (launches + t_launches + w_launches + e_launches
                      + v_launches + s_launches + r_launches + n_launch13
-                     + n_launch14),
+                     + n_launch14 + n_launch16 + n_launch17),
         'max_abs_err': max_err,
         'ms': kernel_ms, 'plain_ms': plain_ms,
         'bound_ms': bound[0], 'bound_by': bound[1],

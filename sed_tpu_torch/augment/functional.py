@@ -17,6 +17,14 @@ Distributions (the reference's, ``pytorch/augmentation.py:8-53``,
 * mixup: consecutive pairs mixed with (lam, 1 - lam); halves the batch.
 * timeshift: one roll of trunc(N(0, 90)) frames for the whole batch
   (truncated toward zero, not rounded).
+
+Under data parallelism ``sed_tpu`` draws for the global batch.  A
+``RowShard`` in place of the generator does the same here: each rank's
+per-row draws (SpecAugment's stripes, ``models.blocks.dropout``'s masks)
+are made from the same-seeded generator at the global batch size, and
+the rank keeps its own rows; a per-batch draw (timeshift) is the same on
+every rank.  So every rank's generator advances alike and the ranks
+together draw what one process draws for the whole batch.
 """
 
 from __future__ import annotations
@@ -30,21 +38,49 @@ import torch
 TIME_AXIS, FREQ_AXIS = 2, 3
 
 
+class RowShard(NamedTuple):
+    """A generator shared by ``count`` ranks, each holding rows ``index``
+    of ``count`` equal, contiguous shares of the global batch."""
+    generator: Optional[torch.Generator]
+    index: int
+    count: int
+
+
+def unshard(generator) -> RowShard:
+    """``generator`` (a ``torch.Generator``, None or a ``RowShard``) as a
+    ``RowShard``; a plain generator is one rank's of one."""
+    if isinstance(generator, RowShard):
+        return generator
+    return RowShard(generator, 0, 1)
+
+
+def rand_rows(generator, shape, device=None) -> torch.Tensor:
+    """``torch.rand(shape)`` for this rank's rows (dim 0) of the global
+    batch: drawn at ``count`` times the rows, this rank's share kept."""
+    gen, k, n = unshard(generator)
+    rows = shape[0]
+    u = torch.rand((rows * n,) + tuple(shape[1:]), generator=gen,
+                   device=device)
+    return u[k * rows:(k + 1) * rows] if n > 1 else u
+
+
 class Stripes(NamedTuple):
     """Drawn stripes of one axis: (B, stripes_num) starts and widths."""
     bgn: torch.Tensor
     dist: torch.Tensor
 
 
-def draw_stripes(generator: Optional[torch.Generator], batch: int,
-                 total: int, drop_width: int, stripes_num: int,
-                 device=None) -> Stripes:
-    """Widths U[0, drop_width), starts floor(u * (total - width))."""
-    dist = torch.randint(0, drop_width, (batch, stripes_num),
-                         generator=generator, device=device)
-    u = torch.rand((batch, stripes_num), generator=generator, device=device)
+def draw_stripes(generator, batch: int, total: int, drop_width: int,
+                 stripes_num: int, device=None) -> Stripes:
+    """Widths U[0, drop_width), starts floor(u * (total - width)), for
+    ``batch`` rows (this rank's, of a ``RowShard``'s global batch)."""
+    gen, k, n = unshard(generator)
+    dist = torch.randint(0, drop_width, (batch * n, stripes_num),
+                         generator=gen, device=device)
+    u = torch.rand((batch * n, stripes_num), generator=gen, device=device)
     bgn = torch.floor(u * (total - dist)).to(torch.int64)
-    return Stripes(bgn, dist)
+    rows = slice(k * batch, (k + 1) * batch)
+    return Stripes(bgn[rows], dist[rows])
 
 
 def apply_stripes(x: torch.Tensor, axis: int, stripes: Stripes
@@ -64,7 +100,7 @@ def apply_stripes(x: torch.Tensor, axis: int, stripes: Stripes
     return x * keep.reshape(shape).to(x.dtype)
 
 
-def draw_spec_augment(generator: Optional[torch.Generator], x: torch.Tensor,
+def draw_spec_augment(generator, x: torch.Tensor,
                       time_drop_width: int = 64, time_stripes_num: int = 2,
                       freq_drop_width: int = 8, freq_stripes_num: int = 2
                       ) -> tuple:
@@ -81,8 +117,7 @@ def apply_spec_augment(x: torch.Tensor, draws: tuple) -> torch.Tensor:
     return apply_stripes(apply_stripes(x, TIME_AXIS, time), FREQ_AXIS, freq)
 
 
-def spec_augment(x: torch.Tensor, generator: Optional[torch.Generator] = None
-                 ) -> torch.Tensor:
+def spec_augment(x: torch.Tensor, generator=None) -> torch.Tensor:
     """SpecAugment on a (B, 1, T, F) log-mel batch."""
     return apply_spec_augment(x, draw_spec_augment(generator, x))
 
@@ -94,12 +129,13 @@ def do_mixup(x: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
     return x[0::2] * lam[0::2] + x[1::2] * lam[1::2]
 
 
-def draw_timeshift(generator: Optional[torch.Generator], device=None,
-                   mean: float = 0.0, std: float = 90.0) -> torch.Tensor:
+def draw_timeshift(generator, device=None, mean: float = 0.0,
+                   std: float = 90.0) -> torch.Tensor:
     """trunc(mean + std * N(0, 1)) as an int64 scalar on ``device``: draws
     in (-1, 1) all give 0, a double-width zero bin as in the reference's
-    ``int()``."""
-    z = torch.randn((), generator=generator, device=device)
+    ``int()``.  One draw for the whole (global) batch."""
+    z = torch.randn((), generator=unshard(generator).generator,
+                    device=device)
     return torch.trunc(mean + std * z).to(torch.int64)
 
 
@@ -113,7 +149,7 @@ def apply_timeshift(x: torch.Tensor, shift, axis: int = TIME_AXIS
     return x.index_select(axis, idx)
 
 
-def do_timeshift(x: torch.Tensor, generator: Optional[torch.Generator] = None,
+def do_timeshift(x: torch.Tensor, generator=None,
                  axis: int = TIME_AXIS, mean: float = 0.0,
                  std: float = 90.0) -> torch.Tensor:
     """Roll the whole batch along time by trunc(N(mean, std)) frames."""
@@ -122,7 +158,7 @@ def do_timeshift(x: torch.Tensor, generator: Optional[torch.Generator] = None,
 
 
 def do_mixup_timeshift(x: torch.Tensor, lam: torch.Tensor,
-                       generator: Optional[torch.Generator] = None,
+                       generator=None,
                        axis: int = TIME_AXIS) -> torch.Tensor:
     """Timeshift, then mixup (``pytorch_utils.py:97-119``)."""
     return do_mixup(do_timeshift(x, generator, axis=axis), lam)

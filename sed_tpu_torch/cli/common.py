@@ -167,10 +167,13 @@ def refuse_features(args, mode: str) -> None:
         raise SystemExit(f'--feature_type {args.feature_type}: {e}') from e
 
 
-def setup_training(args):
+def setup_training(args, device=None, log_to_file: bool = True):
     """Checks, TF32 off, device, logging: what both training CLIs do
     before they touch the workspace's data.  A flag that cannot train
-    exits before any workspace directory exists."""
+    exits before any workspace directory exists.  ``device`` replaces
+    ``args.device`` (a torchrun rank's ``cuda:LOCAL_RANK``); without
+    ``log_to_file`` (ranks other than 0) nothing is written to the
+    workspace's log directory."""
     from sed_tpu_torch.serve.engine import check_device, disable_tf32
     from sed_tpu_torch.utils.logging_utils import create_logging
     if (args.feature_type == 'gamma'
@@ -179,32 +182,50 @@ def setup_training(args):
             "--train_wire: mu-law/qN wires compress raw AUDIO; "
             "feature_type='gamma' packs precomputed gammatone features "
             "as 'waveform' (data/hdf5_pack.py) — use the default int16")
-    if getattr(args, 'compute_dtype', 'f32') == 'bf16':
-        raise SystemExit('--compute_dtype bf16: the bf16 conv stack (and the '
-                         'loss-scaled step as its default) is not ported '
-                         'yet, see ROADMAP.md queue 1 item 2; train in f32')
     disable_tf32()
-    device = check_device(args.device)
+    device = check_device(args.device if device is None else device)
     cfg, ws = resolve(args)
-    create_logging(ws.logs_dir(create=True))
+    if log_to_file:
+        create_logging(ws.logs_dir(create=True))
     logging.info(args)
     return device, cfg, ws
 
 
+def check_world_size(world: int, weak_bs: int, strong_bs: int,
+                     mixup: bool) -> None:
+    """Exit unless ``world`` processes split the weak and the strong
+    batch evenly, into even shares under mixup (a mixup pair must stay
+    on one process).  ``sed_tpu`` shrinks its mesh to fit; a launched
+    process count cannot shrink."""
+    for name, bs in (('weak', weak_bs), ('strong', strong_bs)):
+        if bs % world or (mixup and (bs // world) % 2):
+            raise SystemExit(
+                f'{world} processes cannot share the {name} batch of {bs} '
+                f'(weak {weak_bs}, strong {strong_bs}'
+                f'{", mixup: even shares" if mixup else ""}); launch a '
+                'process count that divides both')
+
+
 def train_state(args, cfg, device):
     """The registry model, drawn fresh from a generator seeded 0 (or
-    loaded from ``--checkpoint``), on ``device``, with its AMSGrad."""
+    loaded from ``--checkpoint``), on ``device``, with its AMSGrad; its
+    conv stack computes in ``--compute_dtype``."""
     import torch
     from sed_tpu_torch.compat.from_flax import load_checkpoint
     from sed_tpu_torch.models.registry import get_model
     from sed_tpu_torch.train.state import create_train_state
     from sed_tpu_torch.utils.logging_utils import count_parameters
+    # ``main train`` has no --compute_dtype: float32
+    dtype = torch.bfloat16 \
+        if getattr(args, 'compute_dtype', 'f32') == 'bf16' else None
     if args.checkpoint is not None:
         model = load_checkpoint(args.checkpoint, args.model_type, cfg, 'cpu',
-                                feature_type=args.feature_type)
+                                feature_type=args.feature_type,
+                                compute_dtype=dtype)
     else:
         model = get_model(args.model_type, cfg,
-                          feature_type=args.feature_type)
+                          feature_type=args.feature_type,
+                          compute_dtype=dtype)
     state = create_train_state(
         model, args.learning_rate, torch.Generator().manual_seed(0),
         fresh=args.checkpoint is None)

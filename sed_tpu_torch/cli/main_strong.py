@@ -18,7 +18,14 @@ take both, the windowed modes feed waveforms and take log-mel only):
   and ``testing``, and the best checkpoint by validation framewise mAP
   and error rate saved as ``iter_<N>.pth`` + ``BEST`` in the workspace's
   checkpoint directory; ``--resume_iteration N`` restarts from the
-  checkpoint at N.  With ``--loss_type clip_bce_logits`` (for
+  checkpoint at N.  ``--compute_dtype bf16`` runs the conv stack in
+  bf16 with the dynamic loss-scaled step (parameters, optimizer state
+  and ``.pth`` files stay float32).  Under ``torchrun --nproc_per_node
+  N`` each process trains on ``cuda:LOCAL_RANK`` (gloo processes with
+  ``--device cpu``) on its share of every batch, the step averaging the
+  gradients (data parallel); every rank evaluates, rank 0 alone writes
+  the checkpoints, statistics and submissions.  With ``--loss_type
+  clip_bce_logits`` (for
   ``Cnn_7layers_Conformer`` / ``Cnn_9layers_Conformer``, whose outputs
   are logits) the strong loss is ``frame_bce_logits``;
 * ``inference_prob``: one forward per 10 s clip (``Evaluator``), the
@@ -39,7 +46,9 @@ from __future__ import annotations
 
 import argparse
 import logging
+import os
 import pickle
+import tempfile
 import time
 
 import numpy as np
@@ -78,21 +87,34 @@ def _setup(args):
 def train(args):
     """Joint weak+strong training (``sed_tpu/cli/main_strong.py:39-276``)."""
     import torch
+    import torch.distributed as dist
     from sed_tpu_torch import losses as losses_lib
     from sed_tpu_torch.augment.functional import MixupGenerator
     from sed_tpu_torch.data.dataset import (AudiosetDataset, DataLoader,
                                             TestSampler, TrainSampler,
                                             cycle_iteration)
     from sed_tpu_torch.eval.evaluator import Evaluator
+    from sed_tpu_torch.parallel import distributed
     from sed_tpu_torch.train.checkpoint import save_best_checkpoint
     from sed_tpu_torch.train.prefetch import device_prefetch
-    from sed_tpu_torch.train.step import make_train_step
+    from sed_tpu_torch.train.step import init_loss_scale, make_train_step
     from sed_tpu_torch.utils.statistics import StatisticsContainer
 
-    device, cfg, ws = common.setup_training(args)
     mixup = 'mixup' in args.augmentation
     timeshift = 'timeshift' in args.augmentation
     spec_augment = 'specaugment' in args.augmentation
+    # the reference's batch sizes INCLUDING its conditional precedence
+    # (``main_strong.py:229-236``): with mixup the weak stream draws
+    # (bs*3)*2; without mixup the x3 weak multiplier is dropped too
+    weak_bs = (args.batch_size * 3) * 2 if mixup else args.batch_size
+    strong_bs = args.batch_size * 2 if mixup else args.batch_size
+
+    # one process per card under torchrun (data parallel); no-op alone
+    parallel = distributed.maybe_initialize(args.device)
+    world, rank = distributed.world_size(), distributed.rank()
+    common.check_world_size(world, weak_bs, strong_bs, mixup)
+    device, cfg, ws = common.setup_training(
+        args, distributed.local_device(args.device), log_to_file=rank == 0)
 
     refs = common.reference_csv_paths(args)
     weak_h5 = common.hdf5_path(args, cfg, 'weak_training')
@@ -104,14 +126,13 @@ def train(args):
     # device by the step; the eval loaders keep the float path
     train_dataset = AudiosetDataset(dequantize=False, wire=args.train_wire)
     dataset = AudiosetDataset()
-    # the reference's batch sizes INCLUDING its conditional precedence
-    # (``main_strong.py:229-236``): with mixup the weak stream draws
-    # (bs*3)*2; without mixup the x3 weak multiplier is dropped too
-    weak_bs = (args.batch_size * 3) * 2 if mixup else args.batch_size
-    strong_bs = args.batch_size * 2 if mixup else args.batch_size
 
     def _train_loader(h5, bs):
-        return DataLoader(train_dataset, TrainSampler(h5, bs),
+        # every process draws the same seeded global stream and loads
+        # only its share
+        sampler = distributed.HostShardedSampler(TrainSampler(h5, bs),
+                                                 even_shares=mixup)
+        return DataLoader(train_dataset, sampler,
                           num_workers=args.num_workers)
 
     weak_iter = cycle_iteration(_train_loader(weak_h5, weak_bs))
@@ -134,15 +155,31 @@ def train(args):
     # clip_bce_logits`` takes the strong loss on logits too
     strong_loss_type = 'frame_bce_logits' \
         if args.loss_type.endswith('_logits') else 'frame_bce'
+    # bf16 trains with the dynamic loss scale and its non-finite skip
+    # (``sed_tpu/cli/main_strong.py:146-156``)
+    use_loss_scale = state.model.compute_dtype is not None
     step_fn = make_train_step(
         state.model, state.optimizer,
         losses_lib.get_loss_func(args.loss_type),
         losses_lib.get_loss_func(strong_loss_type), mixup=mixup,
         timeshift=timeshift, spec_augment=spec_augment,
-        wire_samples=cfg.audio_samples)
+        loss_scale='dynamic' if use_loss_scale else None,
+        wire_samples=cfg.audio_samples,
+        group=dist.group.WORLD if parallel else None)
+    scale_state = init_loss_scale() if use_loss_scale else None
     evaluator = Evaluator(state.model, device, config.EVAL_SED_PARAMS)
-    submission = ws.submission_path(create=True)
+    # every rank evaluates (identical replicated parameters); ranks other
+    # than 0 write their submission to a directory of their own
+    scratch = None if rank == 0 else tempfile.TemporaryDirectory()
+    submission = ws.submission_path(create=True) if rank == 0 else \
+        os.path.join(scratch.name, 'submission.tsv')
     mixup_gen = MixupGenerator(mixup_alpha=1.0)
+
+    def _local_lambda(n_local):
+        # every process draws the same GLOBAL lambda stream and keeps its
+        # slice, so mixup pairing is consistent across processes
+        lam = mixup_gen.get_lambda(n_local * world).astype(np.float32)
+        return lam[rank * n_local:(rank + 1) * n_local]
 
     def _assemble_batches():
         # runs in the prefetch thread: draw, pair mixup lambdas, strip
@@ -153,8 +190,7 @@ def train(args):
             strong_batches = [next(it) for it in strong_iters]
             if mixup:
                 for b in (weak_batch, *strong_batches):
-                    b['mixup_lambda'] = mixup_gen.get_lambda(
-                        len(b['waveform'])).astype(np.float32)
+                    b['mixup_lambda'] = _local_lambda(len(b['waveform']))
             for b in (weak_batch, *strong_batches):
                 b.pop('audio_name', None)
             weak_batch.pop('strong_target', None)
@@ -197,28 +233,40 @@ def train(args):
                     if fmap >= best_map and er < best_er:
                         best_map, best_er, best_iteration = \
                             fmap, er, iteration
-                        saved = save_best_checkpoint(ckpt_dir, state)
-                        logging.info('Model saved to %s for iteration %d',
-                                     saved, iteration)
-            statistics_container.dump()
+                        if rank == 0:
+                            saved = save_best_checkpoint(ckpt_dir, state)
+                            logging.info('Model saved to %s for iteration '
+                                         '%d', saved, iteration)
+            if rank == 0:
+                statistics_container.dump()
+            if parallel:
+                dist.barrier()
             logging.info('Train time: %.3f s, validate time: %.3f s',
                          train_fin_time - train_bgn_time,
                          time.time() - train_fin_time)
             train_bgn_time = time.time()
 
         weak_batch, strong_batches = next(batch_iter)
-        metrics = step_fn(weak_batch, strong_batches, generator)
+        if use_loss_scale:
+            metrics, scale_state = step_fn(weak_batch, strong_batches,
+                                           generator, scale_state)
+        else:
+            metrics = step_fn(weak_batch, strong_batches, generator)
         if iteration % 100 == 0:
             logging.info(
-                '%d iteration - weak: %.4f, strong: %.4f, total: %.4f',
+                '%d iteration - weak: %.4f, strong: %.4f, total: %.4f%s',
                 iteration, float(metrics['weak_loss']),
-                float(metrics['strong_loss']), float(metrics['loss']))
+                float(metrics['strong_loss']), float(metrics['loss']),
+                f', loss scale {scale_state.scale}' if use_loss_scale
+                else '')
 
         iteration += 1
         if iteration == args.stop_iteration:
             logging.info('    Best iteration: %d', best_iteration)
             break
     batch_iter.close()
+    if scratch is not None:
+        scratch.cleanup()
     return state
 
 
@@ -351,8 +399,9 @@ def add_train_args(sub) -> None:
     sub.add_argument('--fsd50k', action='store_true', default=False)
     sub.add_argument('--compute_dtype', type=str, default='f32',
                      choices=['f32', 'bf16'],
-                     help='conv-stack computation dtype; bf16 is not '
-                          'ported yet (ROADMAP.md)')
+                     help='conv-stack computation dtype; bf16 trains with '
+                          'the dynamic loss scale (parameters, optimizer '
+                          'state and checkpoints stay float32)')
     sub.add_argument('--num_workers', type=int, default=2,
                      help='data-loader fetch threads (the reference uses '
                           '8 torch workers)')

@@ -177,10 +177,11 @@ def load_variables(model: torch.nn.Module, variables: dict):
 
 
 def _model_with(variables: dict, model_type: str, cfg, device,
-                drop_unused: bool = False,
-                feature_type: str = 'logmel') -> torch.nn.Module:
+                drop_unused: bool = False, feature_type: str = 'logmel',
+                **model_kwargs) -> torch.nn.Module:
     from sed_tpu_torch.models.registry import get_model
-    model = get_model(model_type, cfg, feature_type=feature_type)
+    model = get_model(model_type, cfg, feature_type=feature_type,
+                      **model_kwargs)
     if drop_unused:
         # tensors the reference's module holds and its forward never
         # uses (``reference_unused`` of the model class); flax ignores
@@ -194,11 +195,12 @@ def _model_with(variables: dict, model_type: str, cfg, device,
 
 
 def load_npz(path: str, model_type: str, cfg, device,
-             feature_type: str = 'logmel') -> torch.nn.Module:
+             feature_type: str = 'logmel', **model_kwargs) -> torch.nn.Module:
     """A registry model with the weights of a ``sed_tpu`` .npz checkpoint,
-    on ``device``, in eval mode."""
+    on ``device``, in eval mode; ``model_kwargs`` (``compute_dtype``) go
+    to ``get_model``."""
     return _model_with(npz_ckpt.load_variables_npz(path), model_type, cfg,
-                       device, feature_type=feature_type)
+                       device, feature_type=feature_type, **model_kwargs)
 
 
 def pth_variables(path: str) -> dict:
@@ -213,21 +215,24 @@ def pth_variables(path: str) -> dict:
 
 
 def load_checkpoint(path: str, model_type: str, cfg, device,
-                    feature_type: str = 'logmel') -> torch.nn.Module:
+                    feature_type: str = 'logmel',
+                    **model_kwargs) -> torch.nn.Module:
     """A registry model with the weights of a ``sed_tpu`` ``.npz`` or a
     reference ``.pth`` checkpoint, on ``device``, in eval mode.  A
     ``feature_type='gamma'`` model has the same tensors as a log-mel one
     (the reference's ``gamma_extractor.`` tensors are skipped by the name
-    map)."""
+    map).  ``model_kwargs`` as ``load_npz``'s."""
     if os.path.isdir(path):
         raise ValueError(
             f'{path} is an Orbax checkpoint directory, which needs JAX to '
             'read; export it once with sed_tpu.utils.npz_ckpt.'
             'save_variables_npz and pass the .npz')
     if path.endswith('.npz'):
-        return load_npz(path, model_type, cfg, device, feature_type)
+        return load_npz(path, model_type, cfg, device, feature_type,
+                        **model_kwargs)
     if path.endswith('.pth'):
         return _model_with(pth_variables(path), model_type, cfg, device,
-                           drop_unused=True, feature_type=feature_type)
+                           drop_unused=True, feature_type=feature_type,
+                           **model_kwargs)
     raise ValueError(f'{path}: a checkpoint is a sed_tpu .npz or a '
                      'reference .pth')

@@ -1,6 +1,6 @@
-"""HDF5-backed dataset, seeded samplers and the prefetching loader (a
-copy of ``sed_tpu/data/dataset.py`` without the multi-host sharding,
-which belongs to the multi-device slice).
+"""HDF5-backed dataset, seeded samplers, the prefetching loader and the
+per-process batch share (a copy of ``sed_tpu/data/dataset.py``; the
+process index and count come from ``torch.distributed``).
 
 Mirrors ``utils/data_generator.py`` (including ``TrainSampler``'s exact
 double-index RNG stream) with one deliberate fix: the dataset keeps HDF5
@@ -380,3 +380,23 @@ def cycle_iteration(loader: DataLoader):
     while True:
         for batch in loader:
             yield batch
+
+
+def shard_for_host(batch: Dict[str, np.ndarray],
+                   process_index: Optional[int] = None,
+                   process_count: Optional[int] = None
+                   ) -> Dict[str, np.ndarray]:
+    """Slice a global batch to this process's share for multi-process
+    data loading; single-process setups get the batch unchanged."""
+    if process_count is None:
+        from sed_tpu_torch.parallel import distributed
+        process_index = distributed.rank()
+        process_count = distributed.world_size()
+    if process_count == 1:
+        return batch
+    out = {}
+    for k, v in batch.items():
+        n = v.shape[0]
+        share = n // process_count
+        out[k] = v[process_index * share:(process_index + 1) * share]
+    return out

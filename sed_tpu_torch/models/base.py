@@ -14,10 +14,18 @@ has no such module and no tensors of it.
 In training mode ``bn0`` uses batch statistics and the augmentations
 run in ``sed_tpu``'s order: SpecAugment, then mixup (timeshift first
 when both are on) or timeshift alone.
+
+``compute_dtype`` is ``sed_tpu``'s field of the same name: the dtype of
+the conv stack (``torch.bfloat16``), which ``CnnSed`` hands to its
+ConvBlocks.  The log-mel frontend, ``bn0`` and everything after the
+stack stay float32.  The other families store it and, as in
+``sed_tpu``, never read it: their convolutions stay float32, which they
+log once when built.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Optional
 
 import torch
@@ -40,14 +48,21 @@ class SedFeatureBase(nn.Module):
     # and never runs: a reference ``.pth`` has their tensors, the port's
     # model does not (``compat/from_flax.load_checkpoint`` drops them)
     reference_unused: tuple = ()
+    # whether the class runs its convolutions in ``compute_dtype``
+    runs_compute_dtype: bool = False
 
     def __init__(self, cfg, feature_type: str = 'logmel',
-                 skip_bn0: bool = False):
+                 skip_bn0: bool = False, compute_dtype=None):
         super().__init__()
         if feature_type not in ('logmel', 'gamma'):
             raise ValueError(f'unsupported feature_type: {feature_type}')
         self.cfg = cfg
         self.feature_type = feature_type
+        self.compute_dtype = compute_dtype
+        if compute_dtype is not None and not self.runs_compute_dtype:
+            logging.info('%s: compute_dtype %s is stored, but its '
+                         'convolutions stay float32 (as in sed_tpu)',
+                         type(self).__name__, compute_dtype)
         self.bn0 = None if skip_bn0 else BatchNorm(cfg.mel_bins)
 
     def compute_features(self, wav: torch.Tensor,

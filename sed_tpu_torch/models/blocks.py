@@ -7,8 +7,10 @@ GRU and attention head take the JAX layout (B, T, C).  The BiGRU is
 r * (W_hn h + b_hn))`` are what ``sed_tpu`` stores and computes.
 ``MultiHead`` is the reference's one-block self-attention.
 
-``BatchNorm`` keeps flax's running statistics in training mode, and
-``init_weights`` draws a fresh model from ``sed_tpu``'s initialisers.
+``BatchNorm`` keeps flax's running statistics in training mode (over
+the global batch of a process group when it has one), ``ConvBlock``
+takes ``sed_tpu``'s bf16 compute dtype, and ``init_weights`` draws a
+fresh model from ``sed_tpu``'s initialisers.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.nn.modules.batchnorm import _BatchNorm
 
+from sed_tpu_torch.augment.functional import rand_rows
+
 
 class BatchNorm(_BatchNorm):
     """BatchNorm over dim 1 of (B, C, ...), for ``bn0`` and the ConvBlocks.
@@ -31,11 +35,22 @@ class BatchNorm(_BatchNorm):
     *biased* batch variance, as flax's does; torch's moves toward the
     unbiased one, n / (n - 1) larger.  Momentum 0.1 here is flax's 0.9:
     ``running = 0.9 running + 0.1 batch``.
+
+    With ``process_group`` set (``set_batchnorm_group``), training mode
+    normalises with the statistics of the group's global batch, as
+    ``sed_tpu``'s BatchNorm over a sharded array does: per channel, the
+    sum, the sum of squares (both summed in float64) and the count are
+    all-reduced over the group, and the mean and biased variance of the
+    whole batch normalise this rank's rows and move the running
+    statistics.  The all-reduce is differentiable, so the backward sees
+    the global statistics too.  ``nn.SyncBatchNorm`` would move the
+    running variance toward the unbiased one.
     """
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  momentum: float = 0.1):
         super().__init__(num_features, eps=eps, momentum=momentum)
+        self.process_group = None
 
     def _check_input_dim(self, input: torch.Tensor) -> None:
         if input.dim() < 2:
@@ -45,26 +60,80 @@ class BatchNorm(_BatchNorm):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
-        out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
-                           self.eps)
+        dims = [0] + list(range(2, x.dim()))
+        if self.process_group is not None:
+            out, mean, var = self._global_batch_norm(x, dims)
+        else:
+            out = F.batch_norm(x, None, None, self.weight, self.bias, True,
+                               0.0, self.eps)
+            with torch.no_grad():
+                var, mean = torch.var_mean(x, dim=dims, correction=0)
         with torch.no_grad():
-            dims = [0] + list(range(2, x.dim()))
-            var, mean = torch.var_mean(x, dim=dims, correction=0)
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
             self.running_var.mul_(1.0 - m).add_(var, alpha=m)
             self.num_batches_tracked.add_(1)
         return out
 
+    def _global_batch_norm(self, x: torch.Tensor, dims: list) -> tuple:
+        """(output, global mean, global biased variance) over the
+        process group's batch."""
+        c = x.shape[1]
+        count = x.new_full((1,), x.numel() // c, dtype=torch.float64)
+        stats = _AllReduceSum.apply(torch.cat([
+            x.sum(dims, dtype=torch.float64),
+            (x * x).sum(dims, dtype=torch.float64), count]),
+            self.process_group)
+        mean = stats[:c] / stats[2 * c]
+        var = (stats[c:2 * c] / stats[2 * c] - mean * mean).clamp_min(0.0)
+        shape = [1, c] + [1] * (x.dim() - 2)
+        scale = self.weight * torch.rsqrt(var + self.eps).to(x.dtype)
+        out = (x - mean.to(x.dtype).view(shape)) * scale.view(shape) \
+            + self.bias.view(shape)
+        return out, mean.detach().to(x.dtype), var.detach().to(x.dtype)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over a process group; each rank's input gradient is the sum of
+    every rank's output gradient.  (``torch.distributed.nn.functional.
+    all_reduce`` does the same and is deprecated; its replacement in
+    ``_functional_collectives`` has no backward.)"""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        import torch.distributed as dist
+        ctx.group = group
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        import torch.distributed as dist
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def set_batchnorm_group(model: nn.Module, group) -> nn.Module:
+    """Give every ``BatchNorm`` of ``model`` the process group whose
+    global batch its training-mode statistics span (None: this
+    process's batch alone)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.process_group = group
+    return model
+
 
 def dropout(x: torch.Tensor, rate: float, generator=None) -> torch.Tensor:
     """flax ``nn.Dropout``: keep with probability 1 - rate (a uniform draw
-    below it, from ``generator``), kept values scaled by 1 / (1 - rate)."""
+    below it, from ``generator``), kept values scaled by 1 / (1 - rate).
+    Dim 0 is the batch: a ``RowShard`` generator draws the mask of the
+    global batch and keeps this rank's rows."""
     if rate == 0.0:
         return x
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=generator, device=x.device) \
-        < keep_prob
+    keep = rand_rows(generator, x.shape, x.device) < keep_prob
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
                                                        device=x.device))
 
@@ -85,17 +154,44 @@ def pad_framewise_output(x: torch.Tensor, frames_num: int) -> torch.Tensor:
     return torch.cat([x, pad], dim=1)
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` that computes in ``compute_dtype`` when it is set:
+    input and weight rounded to it, the output (rounded to it too, as
+    ``sed_tpu``'s ``nn.Conv(dtype=bfloat16)`` returns it) cast back to
+    float32.  The weight, its gradient's destination and the optimizer
+    state stay float32.  The cast is inside ``forward``, so hooks on the
+    module (FSDP's all-gather) see the call."""
+
+    def __init__(self, *args, compute_dtype=None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return self._conv_forward(x.to(dt), self.weight.to(dt),
+                                  bias).to(x.dtype)
+
+
 class ConvBlock(nn.Module):
     """[Conv3x3 (no bias) -> BN -> ReLU] x2, then avg/max/avg+max pool.
-    (B, C_in, T, F) -> (B, C_out, T', F')."""
+    (B, C_in, T, F) -> (B, C_out, T', F').
 
-    def __init__(self, in_channels: int, out_channels: int):
+    ``dtype`` (e.g. ``torch.bfloat16``) is the convolutions' compute
+    dtype (``sed_tpu/models/blocks.py:65-72``); BatchNorm, ReLU and the
+    pooling stay float32.  Not ``torch.autocast``: that would also cast
+    the linear layers, GRU and attention products after the stack, which
+    ``sed_tpu`` keeps in float32."""
+
+    def __init__(self, in_channels: int, out_channels: int, dtype=None):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1,
-                               bias=False)
+        self.conv1 = Conv2d(in_channels, out_channels, 3, padding=1,
+                            bias=False, compute_dtype=dtype)
         self.bn1 = BatchNorm(out_channels)
-        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1,
-                               bias=False)
+        self.conv2 = Conv2d(out_channels, out_channels, 3, padding=1,
+                            bias=False, compute_dtype=dtype)
         self.bn2 = BatchNorm(out_channels)
 
     def forward(self, x: torch.Tensor, pool_size=(2, 2),

@@ -49,8 +49,8 @@ class _ConvBlockStack(SedFeatureBase):
     """The shared preamble + ``conv_block1..N`` (the last one unpooled)."""
 
     def __init__(self, cfg, feature_type: str,
-                 conv_channels: Sequence[int]):
-        super().__init__(cfg, feature_type)
+                 conv_channels: Sequence[int], compute_dtype=None):
+        super().__init__(cfg, feature_type, compute_dtype=compute_dtype)
         self.conv_channels = tuple(conv_channels)
         in_ch = 1
         for i, ch in enumerate(self.conv_channels):
@@ -74,8 +74,9 @@ class ConformerSed(_ConvBlockStack):
     def __init__(self, cfg, classes_num: int = 25,
                  feature_type: str = 'logmel',
                  conv_channels: Sequence[int] = (64, 128, 256, 512),
-                 encoder_type: str = 'Conformer', head: str = 'att'):
-        super().__init__(cfg, feature_type, conv_channels)
+                 encoder_type: str = 'Conformer', head: str = 'att',
+                 compute_dtype=None):
+        super().__init__(cfg, feature_type, conv_channels, compute_dtype)
         if head not in ('att', 'avg'):
             raise ValueError(f'unknown head: {head}')
         self.head = head
@@ -131,12 +132,13 @@ class TokenPoolingConformer(_ConvBlockStack):
 
     def __init__(self, cfg, classes_num: int = 25,
                  feature_type: str = 'logmel', backbone: str = 'baseline',
-                 encoder_type: str = 'Conformer', interpolate_ratio: int = 8):
+                 encoder_type: str = 'Conformer', interpolate_ratio: int = 8,
+                 compute_dtype=None):
         if backbone not in ('baseline', 'convblocks'):
             raise ValueError(f'unknown backbone: {backbone}')
         super().__init__(cfg, feature_type,
                          (64, 128, 256, 512) if backbone == 'convblocks'
-                         else ())
+                         else (), compute_dtype)
         self.backbone = backbone
         self.interpolate_ratio = interpolate_ratio
         if backbone == 'baseline':

@@ -29,8 +29,8 @@ class Cnn14DecisionLevelAtt(SedFeatureBase):
 
     def __init__(self, cfg, classes_num: int = 25,
                  feature_type: str = 'logmel', block_dropout: float = 0.2,
-                 fc_dropout: float = 0.5):
-        super().__init__(cfg, feature_type)
+                 fc_dropout: float = 0.5, compute_dtype=None):
+        super().__init__(cfg, feature_type, compute_dtype=compute_dtype)
         self.block_dropout = block_dropout
         self.fc_dropout = fc_dropout
         in_ch = 1

@@ -87,7 +87,9 @@ register('Cnn14_DecisionLevelAtt', cls=Cnn14DecisionLevelAtt)
 def get_model(model_type: str, cfg, classes_num: int = 25,
               feature_type: str = 'logmel', **kwargs) -> nn.Module:
     """Instantiate a model by its reference name (on the CPU, in eval
-    mode; move it with ``.to(device)``)."""
+    mode; move it with ``.to(device)``).  ``compute_dtype=torch.bfloat16``
+    runs a ``CnnSed``'s conv stack in bf16 (the other families keep
+    float32 convolutions, as in ``sed_tpu``)."""
     if model_type not in MODEL_REGISTRY:
         raise KeyError(
             f'unknown model_type {model_type!r}; available: '

@@ -56,8 +56,9 @@ class VGGishSed(SedFeatureBase):
 
     def __init__(self, cfg, classes_num: int = 25,
                  feature_type: str = 'logmel', head: str = 'att',
-                 gru_hidden: int = 256):
-        super().__init__(cfg, feature_type, skip_bn0=True)
+                 gru_hidden: int = 256, compute_dtype=None):
+        super().__init__(cfg, feature_type, skip_bn0=True,
+                         compute_dtype=compute_dtype)
         if head not in ('att', 'gru_att', 'avg'):
             raise ValueError(f'unknown head: {head}')
         self.head = head

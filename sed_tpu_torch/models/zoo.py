@@ -6,6 +6,8 @@ generator=None) -> {'framewise_output' (B, T', C), 'clipwise_output'
 (B, C), 'embedding'}`` at 100 output frames per second, the reference's
 API.  The augmentation flags and the dropouts act in training mode
 only, with every draw from ``generator``; with mixup the batch halves.
+``compute_dtype=torch.bfloat16`` runs the ConvBlocks' convolutions in
+bf16 (``sed_tpu/models/zoo.py:63-68``); the rest stays float32.
 Submodule names follow the flax parameter tree (``bn0``,
 ``conv_block1``.., ``gru``, ``multihead``, ``att_block``, ``fc``), so
 ``compat/from_flax.py`` maps a checkpoint leaf by leaf.
@@ -28,12 +30,15 @@ class CnnSed(SedFeatureBase):
     attention head ('att') or per-frame sigmoid classifier ('max' /
     'avg' clipwise pooling)."""
 
+    runs_compute_dtype = True
+
     def __init__(self, cfg, classes_num: int = 25,
                  feature_type: str = 'logmel',
                  conv_channels: Sequence[int] = (64, 128, 256, 512),
                  temporal: str = 'none', head: str = 'att',
-                 gru_hidden: int = 256, pad_to_roundup: bool = False):
-        super().__init__(cfg, feature_type)
+                 gru_hidden: int = 256, pad_to_roundup: bool = False,
+                 compute_dtype=None):
+        super().__init__(cfg, feature_type, compute_dtype=compute_dtype)
         if temporal not in ('none', 'gru', 'multihead'):
             raise ValueError(f'unknown temporal module: {temporal}')
         if head not in ('att', 'avg', 'max'):
@@ -44,7 +49,8 @@ class CnnSed(SedFeatureBase):
         self.pad_to_roundup = pad_to_roundup
         in_ch = 1
         for i, ch in enumerate(self.conv_channels):
-            self.add_module(f'conv_block{i + 1}', blocks.ConvBlock(in_ch, ch))
+            self.add_module(f'conv_block{i + 1}',
+                            blocks.ConvBlock(in_ch, ch, dtype=compute_dtype))
             in_ch = ch
         if temporal == 'gru':
             self.gru = blocks.BiGRU(in_ch, gru_hidden)

@@ -20,6 +20,13 @@ with ``overlap`` else ``sample_duration`` s; window n >= 1 runs only
 while ``start + sample_duration <= duration``; a short file still gets
 one zero-padded window.
 
+Several devices (``devices=[...]``, ``sed_tpu``'s ``mesh``): one process
+keeps a replica of the caller's model on each device, splits every
+batch into even, contiguous shares, launches each share's forward on its
+device before it reads any result, and gathers the framewise output in
+order onto the first device, where the device -> host tail runs as with
+one device.
+
 Numerics: the reference runs fp32 products.  On a GPU, PyTorch runs
 cuDNN convolutions in TF32 unless told otherwise, so a CUDA engine
 refuses to start while either TF32 flag is on; ``disable_tf32()`` turns
@@ -28,6 +35,7 @@ both off.
 
 from __future__ import annotations
 
+import copy
 import os
 import queue
 import threading
@@ -112,6 +120,9 @@ class SedInferenceEngine:
       sed_params: event-decoding thresholds.
       batch_size: clips per forward.
       labels: class names, indexed by class.
+      devices: several devices to serve on (e.g. ``['cuda:0', 'cuda:1']``),
+        in place of ``device``: a replica of ``model`` on each, every batch
+        split over them; ``batch_size`` must divide evenly over them.
     """
 
     def __init__(self, model: torch.nn.Module, cfg, device='cuda',
@@ -119,11 +130,22 @@ class SedInferenceEngine:
                  overlap_value: float = 1.0,
                  sed_params: config.SedParams = config.PREDICT_SED_PARAMS,
                  batch_size: int = 32,
-                 labels: Sequence[str] = config.LABELS):
+                 labels: Sequence[str] = config.LABELS,
+                 devices: Optional[Sequence] = None):
         refuse_features(getattr(model, 'feature_type', 'logmel'),
                         'SedInferenceEngine')
-        self.device = check_device(device)
+        if devices is not None:
+            if not devices or batch_size % len(devices):
+                raise ValueError(f'batch_size {batch_size} must divide '
+                                 f'evenly over {len(devices)} devices')
+            device = devices[0]
+        self.devices = [check_device(d)
+                        for d in (devices if devices else [device])]
+        self.device = self.devices[0]
         self.model = model.to(self.device).eval()
+        # one replica a further device (the caller's model on the first)
+        self.replicas = [self.model] + [
+            copy.deepcopy(self.model).to(d).eval() for d in self.devices[1:]]
         self.cfg = cfg
         self.sample_duration = sample_duration
         self.overlap = overlap
@@ -151,13 +173,30 @@ class SedInferenceEngine:
         wav = torch.zeros((1, self.window_samples), device=self.device)
         return self.model(wav)['framewise_output'].shape[1]
 
+    def _shares(self, rows: np.ndarray, fn):
+        """``fn(model, rows on its device)`` -> tuple of tensors, for each
+        replica's even, contiguous share of ``rows``: every share's work
+        is launched before any result is read, then each output is
+        gathered in order onto the first device."""
+        if len(self.replicas) == 1:
+            return fn(self.model, torch.from_numpy(
+                np.ascontiguousarray(rows)).to(self.device))
+        outs = [fn(model, torch.from_numpy(np.ascontiguousarray(share))
+                   .to(dev))
+                for model, dev, share in zip(
+                    self.replicas, self.devices,
+                    np.array_split(rows, len(self.replicas)))
+                if len(share)]
+        return tuple(torch.cat([o[i].to(self.device) for o in outs])
+                     for i in range(len(outs[0])))
+
     @torch.inference_mode()
     def _forward(self, wire: np.ndarray):
-        wav = wire_ops.dequant_wire(
-            torch.from_numpy(np.ascontiguousarray(wire)).to(self.device),
-            samples=self.window_samples)
-        out = self.model(wav)
-        return out['framewise_output'], out['clipwise_output']
+        def run(model, rows):
+            out = model(wire_ops.dequant_wire(rows,
+                                              samples=self.window_samples))
+            return out['framewise_output'], out['clipwise_output']
+        return self._shares(wire, run)
 
     def _check_clip_widths(self, wavs: np.ndarray) -> None:
         """(N, W) clips whose width is ``window_samples`` or a uint8
@@ -488,18 +527,18 @@ class SedInferenceEngine:
             post_merge.coverage_counts(total, self.sample_duration, step),
             dtype=torch.float32, device=self.device)
 
+        def run(model, rows):
+            clips = wire_ops.dequant_wire(rows, clip_samples)
+            wins = torch.stack([clips[:, o:o + self.window_samples]
+                                for o in offs], dim=1)   # (nc, W, samples)
+            return model(wins.reshape(-1, self.window_samples))[
+                'framewise_output'].view(len(rows), w_count, t_win, -1),
+
         nc = max(1, self.batch_size // w_count)
         merged = []
         for i0 in range(0, n, nc):
-            clips = wire_ops.dequant_wire(torch.from_numpy(
-                np.ascontiguousarray(wavs[i0:i0 + nc])).to(self.device),
-                clip_samples)
-            wins = torch.stack([clips[:, o:o + self.window_samples]
-                                for o in offs], dim=1)   # (nc, W, samples)
-            fw = self.model(wins.reshape(-1, self.window_samples))[
-                'framewise_output']
-            fw = fw.view(clips.shape[0], w_count, t_win, -1)
-            acc = fw.new_zeros((clips.shape[0], total, fw.shape[-1]))
+            fw, = self._shares(wavs[i0:i0 + nc], run)
+            acc = fw.new_zeros((fw.shape[0], total, fw.shape[-1]))
             for w in range(w_count):
                 acc[:, w * interval:w * interval + t_win] += fw[:, w]
             merged.append(acc / coverage[None, :, None])

@@ -79,12 +79,16 @@ class StreamingSed:
     and returns every remaining event.  The concatenation of all
     returned events equals ``engine.predict_waveform`` on the full
     audio (up to ordering — streaming emits in finalization order).
+    It runs on one device: an engine over several raises ValueError.
     """
 
     def __init__(self, engine, audio_name: str = 'stream'):
         assert engine.overlap, (
             'StreamingSed needs the overlapped window grid '
             '(engine overlap=True, the reference serving config)')
+        if len(getattr(engine, 'devices', ())) > 1:
+            raise ValueError(f'StreamingSed runs on one device; the engine '
+                             f'serves on {len(engine.devices)}')
         self.engine = engine
         self.audio_name = audio_name
         self.sr = engine.cfg.sample_rate

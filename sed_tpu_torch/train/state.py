@@ -14,6 +14,10 @@ optax's form, elementwise:
     nu     = b2 nu + (1 - b2) g^2
     nu_max = max(nu_max, nu / (1 - b2^t))
     p     -= lr (mu / (1 - b1^t)) / (sqrt(nu_max) + eps)
+
+Every operation is elementwise, so a parameter that FSDP shards (a
+``DTensor``) is updated through its local shard, with its state sharded
+alike.
 """
 
 from __future__ import annotations
@@ -24,6 +28,12 @@ from typing import Optional
 import numpy as np
 import torch
 from torch import nn
+
+
+def local(t: torch.Tensor) -> torch.Tensor:
+    """The tensor this process holds: a ``DTensor``'s local shard (same
+    storage), any other tensor itself."""
+    return t.to_local() if hasattr(t, 'to_local') else t
 
 
 class AmsGrad(torch.optim.Optimizer):
@@ -64,10 +74,10 @@ class AmsGrad(torch.optim.Optimizer):
                                      'nu_max': torch.zeros_like(p)}
                 self.state[p]['step'] += 1
             t = self.state[params[0]]['step']
-            grads = [p.grad for p in params]
-            mus = [self.state[p]['mu'] for p in params]
-            nus = [self.state[p]['nu'] for p in params]
-            maxs = [self.state[p]['nu_max'] for p in params]
+            grads = [local(p.grad) for p in params]
+            mus = [local(self.state[p]['mu']) for p in params]
+            nus = [local(self.state[p]['nu']) for p in params]
+            maxs = [local(self.state[p]['nu_max']) for p in params]
             torch._foreach_mul_(mus, b1)
             torch._foreach_add_(mus, grads, alpha=1.0 - b1)
             torch._foreach_mul_(nus, b2)
@@ -80,7 +90,8 @@ class AmsGrad(torch.optim.Optimizer):
             torch._foreach_add_(denom, group['eps'])
             upd = torch._foreach_div(mus, bc1)
             torch._foreach_div_(upd, denom)
-            torch._foreach_add_(params, upd, alpha=-group['lr'])
+            torch._foreach_add_([local(p) for p in params], upd,
+                                alpha=-group['lr'])
         return loss
 
 

@@ -487,3 +487,148 @@ def test_cuda_istft_round_trip(device):
                     length=x.shape[1])
     assert back.device.type == 'cuda' and back.shape == x.shape
     assert (back - x).abs().max().item() <= 2e-3
+
+
+def _pcm(n: int, seed: int) -> np.ndarray:
+    sys.path.insert(0, os.path.join(REPO, 'tools'))
+    from bench_corpus import make_clips
+    clips = make_clips(n, config.AUDIO_16K.sample_rate, seconds=5, seed=seed)
+    return (np.clip(clips, -1, 1) * 32767).astype(np.int16)
+
+
+def test_cuda_bf16_serving_within_the_gate(device):
+    """The bench checkpoint with a bf16 conv stack on the card against the
+    float32 engine on the card, 16 int16 clips: framewise within 0.05,
+    events (label, onset and offset within 0.05 s) matched both ways for
+    at least 90% (``sed_tpu``'s gate, ``tests/test_serve.py:796``); the
+    log-mel kernel launched, on a float32 input."""
+    sys.path.insert(0, REPO)
+    from chip_smoke import event_match
+    cfg = config.AUDIO_16K
+    pcm = _pcm(16, seed=5)
+    eng = {tag: engine.SedInferenceEngine(
+        load_npz(CKPT, MODEL, cfg, device, compute_dtype=dtype), cfg,
+        device, batch_size=16)
+        for tag, dtype in (('f32', None), ('bf16', torch.bfloat16))}
+    before = fused_logmel.launches
+    fb, _ = eng['bf16'].infer_framewise(pcm)
+    assert fused_logmel.launches == before + 1
+    fa, _ = eng['f32'].infer_framewise(pcm)
+    assert np.abs(fa - fb).max() < 0.05
+    ea, _ = eng['f32'].predict_clips(pcm)
+    eb, _ = eng['bf16'].predict_clips(pcm)
+    assert sum(map(len, ea)) > 0
+    assert event_match(ea, eb) >= 0.9
+
+
+def test_cuda_bf16_train_steps_finite_and_near_float32(device):
+    """Three dynamically loss-scaled bf16 steps of a narrow CnnSed on the
+    card (mixup, SpecAugment and timeshift on) against float32 from the
+    same init, batches and generator seed: no skipped step, each loss
+    within 2e-2 of float32's (``chip_smoke.py:BF16_LOSS_RTOL``), the
+    parameters float32 and finite."""
+    from sed_tpu_torch import losses
+    from sed_tpu_torch.models.zoo import CnnSed
+    from sed_tpu_torch.train.state import create_train_state
+    from sed_tpu_torch.train.step import init_loss_scale, make_train_step
+    rng = np.random.RandomState(3)
+    wav = torch.from_numpy((rng.uniform(-0.3, 0.3, (6, 16000)) * 32767)
+                           .astype(np.int16)).to(device)
+    lam = torch.from_numpy(np.repeat(rng.rand(3), 2).astype(np.float32))
+    weak = {'waveform': wav[:4], 'mixup_lambda': lam[:4].to(device),
+            'target': torch.from_numpy((rng.rand(4, 25) > 0.7)
+                                       .astype(np.float32)).to(device)}
+    strong = {'waveform': wav[4:], 'mixup_lambda': lam[4:].to(device),
+              'strong_target': torch.from_numpy(
+                  (rng.rand(2, 100, 25) > 0.8).astype(np.float32)).to(device)}
+    got = {}
+    for tag, dtype in (('f32', None), ('bf16', torch.bfloat16)):
+        model = CnnSed(config.AUDIO_16K, conv_channels=(8, 16, 16, 32),
+                       temporal='gru', gru_hidden=16, pad_to_roundup=True,
+                       compute_dtype=dtype)
+        state = create_train_state(model, 1e-3,
+                                   torch.Generator().manual_seed(0))
+        model.to(device)
+        step = make_train_step(model, state.optimizer, losses.clip_bce,
+                               losses.frame_bce, mixup=True, timeshift=True,
+                               spec_augment=True,
+                               loss_scale='dynamic' if dtype else None)
+        gen, ss, out = torch.Generator(device=device).manual_seed(7), \
+            init_loss_scale(), []
+        for _ in range(3):
+            if dtype is None:
+                out.append(step(weak, [strong], gen)['loss'].item())
+            else:
+                m, ss = step(weak, [strong], gen, ss)
+                assert m['grads_finite']
+                out.append(m['loss'].item())
+        got[tag] = np.array(out)
+        assert all(p.dtype == torch.float32 and torch.isfinite(p).all()
+                   for p in model.parameters())
+    assert (np.abs(got['bf16'] - got['f32']) <= 2e-2 * got['f32']).all(), got
+
+
+def test_cuda_replicated_engine_matches_one_device(device):
+    """``devices=['cuda', 'cuda']``: two replicas on the card, each batch
+    split in two; int16 and adpcm4 events and XML identical to the
+    single-device engine."""
+    from sed_tpu_torch.data import audio_io
+    cfg = config.AUDIO_16K
+    model = load_npz(CKPT, MODEL, cfg, device)
+    one = engine.SedInferenceEngine(model, cfg, device, batch_size=8)
+    two = engine.SedInferenceEngine(model, cfg, devices=[device, device],
+                                    batch_size=8)
+    pcm = _pcm(12, seed=9)
+    adpcm = audio_io.adpcm_encode_np(pcm.astype(np.float32) / 32767)
+    for wire in (pcm, adpcm):
+        before = fused_logmel.launches
+        got = two.predict_clips(wire)
+        assert fused_logmel.launches == before + 4     # 2 batches x 2
+        assert got == one.predict_clips(wire)
+
+
+def test_cuda_dp_step_in_a_one_rank_gloo_group(device, tmp_path):
+    """The data-parallel step (gloo's all-reduce on CUDA tensors: the
+    BatchNorm statistics in float64, the flat gradient buffer, the finite
+    flag) in a 1-rank group against the plain step from the same init:
+    losses within 1e-6, gradients within 1e-5 of each tensor's max |g|
+    (a floor of 1e-6 of the largest: a zero gradient's float noise)."""
+    import torch.distributed as dist
+    from sed_tpu_torch import losses
+    from sed_tpu_torch.models.zoo import CnnSed
+    from sed_tpu_torch.train.state import create_train_state
+    from sed_tpu_torch.train.step import LossScaleState, make_train_step
+    rng = np.random.RandomState(4)
+    wav = torch.from_numpy(rng.uniform(-0.3, 0.3, (6, 16000))
+                           .astype(np.float32)).to(device)
+    weak = {'waveform': wav[:4], 'target': torch.from_numpy(
+        (rng.rand(4, 25) > 0.7).astype(np.float32)).to(device)}
+    strong = {'waveform': wav[4:], 'strong_target': torch.from_numpy(
+        (rng.rand(2, 100, 25) > 0.8).astype(np.float32)).to(device)}
+    dist.init_process_group('gloo', init_method=f'file://{tmp_path}/store',
+                            rank=0, world_size=1)
+    try:
+        got = {}
+        for tag in ('plain', 'dp'):
+            model = CnnSed(config.AUDIO_16K, conv_channels=(8, 16, 16, 32),
+                           temporal='gru', gru_hidden=16, pad_to_roundup=True)
+            state = create_train_state(model, 1e-3,
+                                       torch.Generator().manual_seed(0))
+            model.to(device)
+            step = make_train_step(
+                model, state.optimizer, losses.clip_bce, losses.frame_bce,
+                mixup=False, timeshift=True, spec_augment=True,
+                loss_scale='dynamic',
+                group=dist.group.WORLD if tag == 'dp' else None)
+            m, _ = step(weak, [strong], torch.Generator(
+                device=device).manual_seed(2), LossScaleState(4096.0, 0))
+            assert m['grads_finite']
+            got[tag] = (m['loss'].item(),
+                        {k: p.grad for k, p in model.named_parameters()})
+    finally:
+        dist.destroy_process_group()
+    (lp, gp), (ld, gd) = got['plain'], got['dp']
+    assert abs(lp - ld) <= 1e-6 * lp
+    floor = 1e-6 * max(g.abs().max() for g in gp.values())
+    for k, g in gp.items():
+        assert (gd[k] - g).abs().max() <= 1e-5 * g.abs().max() + floor, k

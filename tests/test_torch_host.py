@@ -254,7 +254,7 @@ for name in names:
     importlib.import_module(name)
 for cli in ('cli.predict', 'cli.main_strong', 'cli.optimize_thresholds',
             'cli.main', 'cli.features', 'cli.calculate_metrics',
-            'cli.download', 'dsp.plot'):
+            'cli.download', 'dsp.plot', 'parallel.dryrun'):
     sys.argv = [cli, '--help']
     try:
         runpy.run_module('sed_tpu_torch.' + cli, run_name='__main__')
@@ -270,9 +270,9 @@ print('MODULES', len(names))
 
 def test_port_imports_nothing_of_the_jax_package():
     """Every module of sed_tpu_torch imports (the training modules
-    included), and the seven CLIs and the plot CLI answer --help, in a
-    process where sed_tpu, jax, jaxlib, flax, optax and orbax cannot be
-    imported."""
+    included), and the seven CLIs, the plot CLI and the multi-device dry
+    run answer --help, in a process where sed_tpu, jax, jaxlib, flax,
+    optax and orbax cannot be imported."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, '-c', _GUARD_SCRIPT], cwd=REPO,
                           env=env, capture_output=True, text=True,
@@ -280,14 +280,16 @@ def test_port_imports_nothing_of_the_jax_package():
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert 'usage:' in proc.stdout
     n = int(proc.stdout.split('MODULES')[1].split()[0])
-    assert n >= 71, proc.stdout[-500:]
+    assert n >= 75, proc.stdout[-500:]
     for name in ('augment.functional', 'losses', 'train.state', 'train.step',
                  'train.checkpoint', 'train.prefetch', 'utils.statistics',
                  'utils.logging_utils', 'cli.main', 'models.encoders',
                  'models.conformer_zoo', 'models.vggish', 'models.panns',
                  'data.metadata', 'data.hdf5_pack', 'data.download',
                  'cli.features', 'cli.download', 'cli.calculate_metrics',
-                 'dsp.gammatone', 'dsp.plot', 'dsp.cqt', 'dsp.transforms'):
+                 'dsp.gammatone', 'dsp.plot', 'dsp.cqt', 'dsp.transforms',
+                 'parallel.__init__', 'parallel.distributed', 'parallel.mesh',
+                 'parallel.dryrun'):
         assert os.path.isfile(os.path.join(
             REPO, 'sed_tpu_torch', *name.split('.')) + '.py'), name
     assert not os.path.exists(os.path.join(REPO, 'sed_tpu_torch',

@@ -218,19 +218,66 @@ def test_saved_pth_loads_into_sed_tpu_flax_variables(strong_run):
                                    np.asarray(want[key]), atol=1e-5)
 
 
-def test_train_defaults_to_the_card_and_refuses_bf16(dataset_dir, tmp_path):
+@pytest.fixture(scope='module')
+def bf16_run(dataset_dir, packed, tmp_path_factory):
+    ws = _copy(packed, tmp_path_factory, 'ws_bf16')
+    state = main_strong.main([
+        'train', '--dataset_dir', dataset_dir, '--workspace', ws, *ARGS,
+        '--stop_iteration', '2', '--eval_interval', '1', '--device', 'cpu',
+        '--compute_dtype', 'bf16'])
+    return ws, state
+
+
+def test_train_defaults_to_the_card_and_trains_bf16(dataset_dir, tmp_path,
+                                                    bf16_run):
+    """``--device`` defaults to ``cuda`` (which raises on a host without
+    CUDA); ``--compute_dtype bf16`` trains: the model's ConvBlocks
+    compute in bf16 and the loss-scaled step ran (2 steps)."""
     base = ['train', '--dataset_dir', dataset_dir, '--workspace',
             str(tmp_path), *ARGS]
     assert main_strong.get_parser().parse_args(base).device == 'cuda'
     assert main.get_parser().parse_args(base).device == 'cuda'
-    with pytest.raises(SystemExit, match='ROADMAP.md'):
-        main_strong.main([*base, '--compute_dtype', 'bf16', '--device',
-                          'cpu'])
+    assert main_strong.get_parser().parse_args(
+        [*base, '--compute_dtype', 'bf16']).compute_dtype == 'bf16'
+    _, state = bf16_run
+    assert state.step == 2
+    assert state.model.compute_dtype is torch.bfloat16
+    assert state.model.conv_block1.conv1.compute_dtype is torch.bfloat16
     if torch.cuda.is_available():
         pytest.skip('this host has CUDA')
     for cli in (main_strong, main):
         with pytest.raises(RuntimeError, match='CUDA is not available'):
             cli.main(base)
+
+
+def test_bf16_train_writes_a_float32_pth_both_packages_read(bf16_run):
+    """2 bf16 iterations (an evaluation at 1): ``iter_1.pth`` holds float32
+    tensors with the fp32 model's keys; the port's ``load_checkpoint`` and
+    ``sed_tpu``'s ``.pth`` reader both load it, and their fp32 models give
+    the same outputs within 1e-5."""
+    from sed_tpu.compat.torch_loader import load_checkpoint_variables
+    from sed_tpu.models.registry import get_model as jax_get_model
+    from sed_tpu_torch.compat.from_flax import load_checkpoint
+    from sed_tpu_torch.models.registry import get_model
+    ws, state = bf16_run
+    path = os.path.join(_ws(ws).checkpoint_path('logmel', '16k'),
+                        'iter_1.pth')
+    obj = torch.load(path, weights_only=True)
+    fp32 = get_model(MODEL, CFG).state_dict()
+    assert obj['model'].keys() == fp32.keys()
+    assert all(v.dtype == fp32[k].dtype for k, v in obj['model'].items())
+    assert all(v.dtype == torch.float32 for v in obj['model'].values()
+               if v.is_floating_point())
+    variables, iteration = load_checkpoint_variables(path)
+    assert iteration == 1
+    wav = make_clips(2, CFG.sample_rate, seconds=2, seed=6)
+    want = jax_get_model(MODEL, CFG).apply(variables, wav, train=False)
+    port = load_checkpoint(path, MODEL, CFG, 'cpu')
+    with torch.no_grad():
+        got = port(torch.from_numpy(wav))
+    for key in ('framewise_output', 'clipwise_output'):
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
+                                   atol=1e-5)
 
 
 def _args(**kw):
