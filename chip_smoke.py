@@ -9,8 +9,9 @@ Cnn_9layers_Gru_FrameAtt at 16 kHz on the trained bench checkpoint, and
 checks it against the same engine on the CPU.  Phases:
 
 1. card, power limit, torch / CUDA versions, TF32 flags (both turned off);
-2. build of the CUDA log-mel kernel from ``sed_tpu_torch/csrc`` (nvcc,
-   sm_90a), its time, and ptxas's registers and spills (no spills);
+2. build of the CUDA kernels from ``sed_tpu_torch/csrc`` (log-mel and the
+   v6 predictor; one nvcc a source, started together, sm_90a), the time,
+   and ptxas's registers and spills (no spills);
 3. kernel against its plain PyTorch version at 8, 16 and 32 kHz, with a
    frame count no tile divides, near-silent, digitally silent and
    full-scale clips, and with a mel filter on the Nyquist bin (rtol 1e-4,
@@ -138,18 +139,38 @@ checks it against the same engine on the CPU.  Phases:
     (or 1e-5 of each tensor's max |g|); (d)
     ``parallel/dryrun.dryrun_multichip(4)`` in gloo processes on the
     host's CPU.
+18. resident file serving and the v6 wire: the 64 clips written as
+    int16, mu-law and IMA ADPCM wav and as ``.q4/.q5/.q6`` containers,
+    each directory served by ``predict_files_resident`` through
+    ``audio_io.wire_reader_for`` on the card: events and XML identical
+    to ``predict_clips`` on the same wire rows, the first 8 clips to the
+    CPU engine, passes of 24 clips (``max_pass_clips``) to one pass; the
+    clips saved as ``.v6`` (payload sizes against q6's) and served by
+    ``predict_files_resident_ragged`` and ``predict_rows_resident``:
+    identical to the q6 files; ``predict --resident --device cuda`` on
+    the int16 directory: XML files identical; clips/s over 512 clips for
+    int16, adpcm4 and q6 files (reads included), v6 rows and
+    ``predict_clips`` on int16, in turns, with one pass's telemetry per
+    wire; the v6 predictor kernel (``csrc/v6_predict.cu``) on one 32-clip
+    pool with a padding row: bit-exact to its plain version and to
+    ``v6_decode_np``, the padding row silent, kernel and plain timed
+    (CUDA events), the whole decode timed and its launches counted under
+    the profiler; which ADPCM encoder ran (native or numpy).
 
 ``python3 chip_smoke.py --families-only`` runs phases 1, 2 and 14 alone,
 ``--gamma-only`` phases 1, 2 and 15, ``--bf16-only`` phases 1, 2 and 16,
 ``--parallel-only`` phases 1, 2 and 17 (the last two may be given
-together), and none prints a result line (for work on that phase).
+together), ``--resident-only`` phases 1, 2 and 18, and none prints a
+result line (for work on that phase).
 
-Phases 4, 7, 8, 9, 10, 11, 12, 13, 14, 16 and 17 drive the main paths: each sets the
-kernel's launch count to 0 just before and reads it just after, and
-fails if the kernel was not launched.  Phase 15 drives the gamma path the
-same way and fails if log-mel was launched there: that path has no
-kernel, its model takes packed features.  The script imports nothing of JAX
-and nothing of the JAX package ``sed_tpu``, and checks so at the end.
+Phases 4, 7, 8, 9, 10, 11, 12, 13, 14, 16, 17 and 18 drive the main
+paths: each sets the kernel's launch count to 0 just before and reads it
+just after, and fails if the kernel was not launched; phase 18 does the
+same for the v6 predictor kernel on the v6 paths.  Phase 15 drives the
+gamma path the same way and fails if log-mel was launched there: that
+path has no kernel, its model takes packed features.  The script imports
+nothing of JAX and nothing of the JAX package ``sed_tpu``, and checks so
+at the end.
 
 Any failure raises (exit code != 0).  Without CUDA, or outside the
 repository, it exits non-zero before printing a result.  The last line
@@ -166,8 +187,10 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+KERNELS = ('logmel', 'v6_predict')      # sed_tpu_torch/csrc/<name>.cu
 TOL = dict(rtol=1e-4, atol=1e-3)        # dB; tests/test_ops.py's tolerance
 FRAMEWISE_ATOL = 1e-4
 
@@ -194,6 +217,31 @@ def cuda_ms(fn, runs: int = 20, warmup: int = 3) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def queued_ms(fn, reps: int = 20) -> float:
+    """Device ms per ``fn()``: ``reps`` calls queued behind a spin
+    kernel (``torch.cuda._sleep``) that lasts longer than the host takes
+    to enqueue them, so that the CUDA events around them bracket their
+    device work back to back and not the host's launch gaps (which
+    ``cuda_ms`` sees for a call shorter than its own Python).  For a
+    call of fewer launches than the device's launch queue holds."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(4 * reps * host_s * 2e9) + 1000000)  # >2x, < 2 GHz
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def kernel_inputs(cfg, seed: int):
@@ -591,14 +639,16 @@ def profile_by_group(fn, groups, tag: str, what: str, top: int = 15) -> dict:
           for name, ops in groups}
     by['log-mel'] = sum(us for name, (us, _) in rows if 'logmel' in name)
     by['other'] = busy_us - sum(by.values())
+    n_kernels = sum(count for _, (_, count) in rows)
     print(f'[{tag}] profile of {what}: wall {wall_us:.0f} us, device '
-          f'kernels {busy_us:.0f} us, device idle share '
-          f'{1 - busy_us / wall_us:.3f}; device time by op (us): '
+          f'kernels {busy_us:.0f} us in {n_kernels} launches, device idle '
+          f'share {1 - busy_us / wall_us:.3f}; device time by op (us): '
           + ', '.join(f'{k} {v:.0f}' for k, v in sorted(
               by.items(), key=lambda kv: -kv[1])))
     for name, (us, count) in rows[:top]:
         print(f'[{tag}]   {us:10.0f} us  x{count:<4d} {name[:90]}')
     by['busy'] = busy_us
+    by['launches'] = n_kernels
     return by
 
 
@@ -1649,6 +1699,235 @@ def parallel_phase(card: str, dev, cfg, pcm, gpu, adpcm) -> int:
     return launches
 
 
+V6_LANE_BYTES = 4 * (128 + 5 + 128)   # residuals, 5 parameters, samples
+
+
+def v6_bound_ms(order) -> tuple:
+    """The least time an H100 SXM could take for the v6 predictor
+    recurrence on these lanes: the larger of its bytes (each lane's 128
+    int32 residuals and 5 parameter words read once, its 128 float32
+    samples written once) over 3.35 TB/s and its operations over the 67
+    TFLOP/s of the CUDA cores (the table's rate for 32-bit types; int32
+    issues at half of it, still far below the bytes), counted per sample
+    for each lane's order: the add of the residual, the int -> float
+    conversion and the scale multiply, plus 0 / 0 / 2 / 4 operations of
+    the order 0 / 1 / 2 / 3 prediction.  Returns (ms, 'bytes' or
+    'operations', ops ms, bytes ms)."""
+    import numpy as np
+    order = np.asarray(order)
+    per_order = np.array([3, 3, 5, 7])
+    ops = 128 * per_order[order].sum()
+    bytes_ms = order.size * V6_LANE_BYTES / 3.35e12 * 1e3
+    ops_ms = float(ops) / 67e12 * 1e3
+    return max(ops_ms, bytes_ms), ('operations' if ops_ms > bytes_ms
+                                   else 'bytes'), ops_ms, bytes_ms
+
+
+RESIDENT_FORMATS = ('int16', 'mulaw', 'adpcm4', 'q4', 'q5', 'q6')
+
+
+def resident_phase(card: str, dev, cfg, clips, gpu, cpu) -> tuple:
+    """Phase 18; returns the log-mel launches of its main-path runs and
+    the v6 predictor kernel's entry of the ``kernels`` line (without its
+    name, route, source and replaces)."""
+    import numpy as np
+    import torch
+    from sed_tpu_torch.cli import predict as predict_cli
+    from sed_tpu_torch.data import audio_io
+    from sed_tpu_torch.native import adpcm_native
+    from sed_tpu_torch.ops import wire as wire_ops
+    from sed_tpu_torch.ops.logmel_kernel import fused_logmel
+    sr = cfg.sample_rate
+    n = len(clips)
+    savers = {
+        'int16': audio_io.save_wav, 'mulaw': audio_io.save_wav_mulaw,
+        'adpcm4': audio_io.save_wav_adpcm,
+        **{f'q{b}': (lambda p, x, r, b=b: audio_io.save_qn(p, x, r, b))
+           for b in (4, 5, 6)},
+        'v6': audio_io.save_v6}
+    launches = 0
+
+    def counted(fn, what: str):
+        """``fn()`` with the log-mel count set to 0 just before and read
+        just after; fails if the kernel was not launched."""
+        nonlocal launches
+        fused_logmel.launches = 0
+        out = fn()
+        launched = fused_logmel.launches
+        assert launched > 0, f'{what} did not launch the log-mel kernel'
+        launches += launched
+        return out, launched
+
+    encoder = ('native (csrc/adpcm_codec.cc, g++)'
+               if adpcm_native.native_available() else 'numpy (no g++)')
+    print(f'[18] ADPCM encoder: {encoder}')
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {}
+        for fmt, save in savers.items():
+            os.makedirs(os.path.join(tmp, fmt))
+            ext = '.wav' if fmt in ('int16', 'mulaw', 'adpcm4') else f'.{fmt}'
+            paths[fmt] = [os.path.join(tmp, fmt, f'c{i:02d}{ext}')
+                          for i in range(n)]
+            t0 = time.perf_counter()
+            for p, x in zip(paths[fmt], clips):
+                save(p, x, sr)
+            size = sum(os.path.getsize(p) for p in paths[fmt]) / n
+            print(f'[18] wrote {n} clips as {fmt} in '
+                  f'{time.perf_counter() - t0:.3f} s, {size:.1f} bytes a '
+                  f'file')
+        names = [os.path.basename(p) for p in paths['int16']]
+
+        # (a) the fixed-width files through wire_reader_for
+        results = {}
+        for fmt in RESIDENT_FORMATS:
+            reader = audio_io.wire_reader_for(paths[fmt][0])
+            rows = np.stack([reader(p) for p in paths[fmt]])
+            got, launched = counted(lambda: gpu.predict_files_resident(
+                paths[fmt], reader, names=names), f'{fmt} files')
+            assert got == gpu.predict_clips(rows, names), \
+                f'{fmt}: predict_files_resident differs from predict_clips'
+            assert [r[:8] for r in got] == list(cpu.predict_clips(
+                rows[:8], names[:8])), f'{fmt}: GPU differs from the CPU'
+            results[fmt] = got
+            print(f'[18] {fmt} files ({rows.shape[1]} {rows.dtype} a row): '
+                  f'predict_files_resident = predict_clips on the same rows,'
+                  f' first 8 = the CPU engine; {sum(map(len, got[0]))} '
+                  f'events, log-mel launches {launched}')
+        reader = audio_io.wire_reader_for(paths['int16'][0])
+        split, _ = counted(lambda: gpu.predict_files_resident(
+            paths['int16'], reader, names=names, max_pass_clips=24),
+            'passes of 24 clips')
+        assert split == results['int16'], 'max_pass_clips=24 differs'
+        print('[18] int16 in passes of 24 clips: equal to one pass')
+
+        # (b) v6: the ragged pass, the rows entry, the pool decode
+        payloads = [audio_io.read_v6(p)[0] for p in paths['v6']]
+        sizes = [len(p) for p in payloads]
+        q6_bytes = audio_io.qn_bytes(gpu.window_samples, 6)
+        print(f'[18] v6 payloads of the {n} bench-corpus clips: mean '
+              f'{float(np.mean(sizes))!r} bytes (min {min(sizes)}, max '
+              f'{max(sizes)}) against q6\'s {q6_bytes}: '
+              f'{float(np.mean(sizes)) / q6_bytes!r} of q6')
+        v6_launch = 0
+        for entry, fn in (
+                ('predict_files_resident_ragged',
+                 lambda: gpu.predict_files_resident_ragged(
+                     paths['v6'], lambda p: audio_io.read_v6(p)[0],
+                     names=names)),
+                ('predict_rows_resident',
+                 lambda: gpu.predict_rows_resident(payloads, names))):
+            wire_ops._v6_predict.launches = 0
+            got, launched = counted(fn, entry)
+            assert wire_ops._v6_predict.launches > 0, \
+                f'{entry} did not launch the v6 predictor kernel'
+            v6_launch += wire_ops._v6_predict.launches
+            assert got == results['q6'], f'{entry}: v6 differs from q6'
+            print(f'[18] {entry}: events and XML identical to the q6 '
+                  f'files\'; log-mel launches {launched}, v6 kernel '
+                  f'launches {wire_ops._v6_predict.launches}')
+
+        # (c) the CLI
+        ws = os.path.join(tmp, 'ws')
+        _, launched = counted(lambda: predict_cli.main([
+            'predict', '--workspace', ws, '--input_dir',
+            os.path.join(tmp, 'int16'), '--audio_16k', '--checkpoint',
+            os.path.join(REPO, 'tools', 'bench_checkpoint.npz'),
+            '--device', 'cuda', '--batch_size', '32', '--resident']),
+            'predict --resident')
+        for name, xml in zip(names, results['int16'][1]):
+            with open(os.path.join(ws, 'predict_results',
+                                   name[:-4] + '.xml')) as f:
+                assert f.read() == xml, f'CLI XML of {name} differs'
+        print(f'[18] predict --resident --device cuda on the int16 '
+              f'directory: {n} XML files identical to (a); log-mel '
+              f'launches {launched}')
+
+        # (d) rates over 512 clips, file reads included
+        def rate(fn, runs: int = 3):
+            fn()
+            out = []
+            for _ in range(runs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                out.append(round(8 * n / (time.perf_counter() - t0), 1))
+            return out
+
+        pcm = (np.clip(clips, -1, 1) * 32767).astype(np.int16)
+        bench = np.concatenate([pcm] * 8)
+        tels = {fmt: {} for fmt in ('int16', 'adpcm4', 'q6', 'v6')}
+        modes = {f'{fmt} files': (lambda fmt=fmt: gpu.predict_files_resident(
+                     paths[fmt] * 8, audio_io.wire_reader_for(
+                         paths[fmt][0]), telemetry=tels[fmt]))
+                 for fmt in ('int16', 'adpcm4', 'q6')}
+        modes['v6 rows'] = lambda: gpu.predict_rows_resident(payloads * 8)
+        modes['predict_clips int16'] = lambda: gpu.predict_clips(bench)
+        rates = {name: [] for name in modes}
+        for r in range(2):
+            for name in (modes if r % 2 == 0 else reversed(list(modes))):
+                rates[name] += rate(modes[name], runs=2)
+        print(f'[18] clips/s over 512 clips, batch 32, on {card} (4 runs '
+              f'each, in turns; files read on the host inside the call): '
+              + '; '.join(f'{k} {v}' for k, v in rates.items()))
+        gpu.predict_files_resident_ragged(
+            paths['v6'] * 8, lambda p: audio_io.read_v6(p)[0],
+            telemetry=tels['v6'])
+        for fmt, tel in tels.items():
+            print(f'[18] telemetry of one 512-clip {fmt} pass: {tel}')
+
+    # the pool decode of one 32-clip batch: kernel against plain and numpy
+    rows32 = payloads[:32]
+    pool = np.concatenate(rows32 + [np.zeros(8192, np.uint8)]).view(np.int32)
+    offs = (np.concatenate([[0], np.cumsum(sizes[:32])]) // 4).astype(
+        np.int32)                          # 32 clips and a padding row
+    pool_d = torch.from_numpy(pool).to(dev)
+    offs_d = torch.from_numpy(offs).to(dev)
+    dec = wire_ops.dequant_v6_pool(pool_d, offs_d, gpu.window_samples)
+    fields = wire_ops.v6_fields(pool_d, offs_d, gpu.window_samples)
+    plain = wire_ops._v6_predict_plain(*fields).reshape(dec.shape)
+    err = (dec - plain).abs().max().item()
+    assert torch.equal(dec.view(torch.int32), plain.view(torch.int32)), \
+        'the v6 kernel differs from its plain version'
+    dec = dec.cpu().numpy()
+    for i, row in enumerate(rows32):
+        want = audio_io.v6_decode_np(row, gpu.window_samples)
+        assert np.array_equal(dec[i].view(np.int32), want.view(np.int32)), \
+            f'v6 clip {i} differs from v6_decode_np'
+        err = max(err, float(np.abs(dec[i] - want).max()))
+    assert not dec[-1].view(np.int32).any(), 'the padding row is not silent'
+    fields = wire_ops.v6_fields(pool_d, offs_d[:32], gpu.window_samples)
+
+    def kernel():
+        return wire_ops._v6_predict(*fields)
+
+    def decode():
+        return wire_ops.dequant_v6_pool(pool_d, offs_d[:32],
+                                        gpu.window_samples)
+
+    ms = queued_ms(kernel)
+    plain_ms = cuda_ms(lambda: wire_ops._v6_predict_plain(*fields), runs=5)
+    bound = v6_bound_ms(fields[1].cpu().numpy())
+    print(f'[18] v6 predictor on 32 x {gpu.window_samples} ({len(fields[1])} '
+          f'lanes) on {card}: kernel {ms!r} ms (20 launches queued behind a '
+          f'spin kernel, CUDA events; one launch alone between events '
+          f'{cuda_ms(kernel)!r} ms, the wrapper\'s host time showing), plain '
+          f'{plain_ms!r} ms (CUDA events, median of 5: its 1900 launches); '
+          f'bound {bound[0]!r} ms by {bound[1]} (bytes {bound[3]!r} ms, '
+          f'operations {bound[2]!r} ms); kernel at {bound[0] / ms!r} of it; '
+          f'bit-exact to plain and to v6_decode_np, padding row silent')
+    print(f'[18] whole v6 pool decode of 32 clips: {queued_ms(decode)!r} ms '
+          f'queued, {cuda_ms(decode)!r} ms one call between events (median '
+          f'of 20)')
+    profile_by_group(lambda: wire_ops.dequant_v6_pool(
+        pool_d, offs_d[:32], gpu.window_samples), (), '18',
+        'one v6 pool decode of 32 clips (with the kernel)', top=6)
+    profile_by_group(lambda: wire_ops._v6_predict_plain(*fields), (), '18',
+                     'the plain recurrence alone (torch ops)', top=4)
+    return launches, {'launches': v6_launch, 'max_abs_err': err, 'ms': ms,
+                      'plain_ms': plain_ms, 'bound_ms': bound[0],
+                      'bound_by': bound[1], 'library_ms': None}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1676,21 +1955,27 @@ def main() -> None:
     assert not any(tf32_flags().values())
     dev = torch.device('cuda', 0)
 
-    # -- 2. kernel build -------------------------------------------------
+    # -- 2. kernel builds, one nvcc a source, all started together --------
     t0 = time.perf_counter()
-    lib = _build.load('logmel')
-    print(f'[2] built {os.path.relpath(lib.path, REPO)} from '
-          f'sed_tpu_torch/csrc/{{logmel.cu,mma_sm90.cuh}} with nvcc '
-          f'{" ".join(_build.NVCC_FLAGS)} in {time.perf_counter() - t0:.2f} '
-          f's (nvcc {lib.build_seconds:.2f} s)')
-    for line in lib.build_log.splitlines():
-        print(f'[2]   {line}')
-    regs = [int(r) for r in re.findall(r'Used (\d+) registers',
-                                        lib.build_log)]
-    spills = [int(a) + int(b) for a, b in re.findall(
-        r'(\d+) bytes spill stores, (\d+) bytes spill loads', lib.build_log)]
-    print(f'[2] ptxas: registers {regs}, spill bytes {spills}')
-    assert regs and spills and not any(spills), 'ptxas spilled registers'
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        libs = list(pool.map(_build.load, KERNELS))
+    print(f'[2] built {len(libs)} kernel libraries in parallel in '
+          f'{time.perf_counter() - t0:.2f} s')
+    for lib in libs:
+        print(f'[2] {os.path.relpath(lib.path, REPO)} from '
+              f'sed_tpu_torch/csrc/{lib.name}.cu with nvcc '
+              f'{" ".join(_build.NVCC_FLAGS)} (nvcc {lib.build_seconds:.2f} '
+              's)')
+        for line in lib.build_log.splitlines():
+            print(f'[2]   {line}')
+        regs = [int(r) for r in re.findall(r'Used (\d+) registers',
+                                            lib.build_log)]
+        spills = [int(a) + int(b) for a, b in re.findall(
+            r'(\d+) bytes spill stores, (\d+) bytes spill loads',
+            lib.build_log)]
+        print(f'[2] ptxas {lib.name}: registers {regs}, spill bytes {spills}')
+        assert regs and spills and not any(spills), \
+            f'ptxas spilled registers in {lib.name}'
 
     if '--gamma-only' in sys.argv[1:]:
         t15 = time.perf_counter()
@@ -1718,6 +2003,22 @@ def main() -> None:
                 print(f'[{phase}] phase done in '
                       f'{time.perf_counter() - t0:.1f} s')
         print('phases 3-15 were not run: no result')
+        return
+
+    if '--resident-only' in sys.argv[1:]:
+        cfg = config.AUDIO_16K
+        ckpt = os.path.join(REPO, 'tools', 'bench_checkpoint.npz')
+        model_type = 'Cnn_9layers_Gru_FrameAtt'
+        gpu = SedInferenceEngine(load_npz(ckpt, model_type, cfg, dev), cfg,
+                                 dev, batch_size=32)
+        cpu = SedInferenceEngine(load_npz(ckpt, model_type, cfg, 'cpu'), cfg,
+                                 'cpu', batch_size=32)
+        t18 = time.perf_counter()
+        resident_phase(card, dev, cfg, make_clips(64, cfg.sample_rate,
+                                                  seconds=5, seed=0),
+                       gpu, cpu)
+        print(f'[18] resident phase done in {time.perf_counter() - t18:.1f} '
+              's; phases 3-17 were not run: no result')
         return
 
     if '--families-only' in sys.argv[1:]:
@@ -2084,6 +2385,12 @@ def main() -> None:
                                 wires['adpcm4'][:len(clips)])
     print(f'[17] multi-device phase done in {time.perf_counter() - t17:.1f} s')
 
+    # -- 18. resident file serving and the v6 wire ---------------------------
+    torch.cuda.empty_cache()
+    t18 = time.perf_counter()
+    n_launch18, v6_kernel = resident_phase(card, dev, cfg, clips, gpu, cpu)
+    print(f'[18] resident phase done in {time.perf_counter() - t18:.1f} s')
+
     blocked = [m for m in sys.modules
                if m.split('.')[0] in ('sed_tpu', 'jax', 'jaxlib', 'flax',
                                       'optax', 'orbax')]
@@ -2096,12 +2403,17 @@ def main() -> None:
         'replaces': 'sed_tpu/ops/logmel_kernel.py:48',
         'launches': (launches + t_launches + w_launches + e_launches
                      + v_launches + s_launches + r_launches + n_launch13
-                     + n_launch14 + n_launch16 + n_launch17),
+                     + n_launch14 + n_launch16 + n_launch17 + n_launch18),
         'max_abs_err': max_err,
         'ms': kernel_ms, 'plain_ms': plain_ms,
         'bound_ms': bound[0], 'bound_by': bound[1],
         # no single PyTorch call computes log-mel
-        'library_ms': None}]}))
+        'library_ms': None}, {
+        'name': 'v6_predict', 'route': 'cuda',
+        'source': 'sed_tpu_torch/csrc/v6_predict.cu',
+        'replaces': 'sed_tpu/ops/wire.py:468',
+        # no PyTorch call computes this recurrence: library_ms is null
+        **v6_kernel}]}))
     print(card_line())
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -11,7 +11,8 @@ dsp         log-mel frontend in plain PyTorch (the kernel's plain version)
             and its plot CLI; the pseudo-CQT frontend; DFT / ISTFT /
             enframe transforms on tensors
 ops         the hand-written CUDA log-mel kernel's wrapper; the device
-            decode of every fixed-width wire (int16, mu-law, qN, ADPCM)
+            decode of every wire (int16, mu-law, qN, ADPCM, and the
+            ragged v6 pool with its CUDA predictor kernel)
 models      nn.Module model zoo, all of sed_tpu's registry names (CnnSed:
             CNN, + BiGRU, + MultiHead; the ESPnet Transformer / Conformer
             encoders and the Conformer, token-pooling, VGGish and CNN14
@@ -24,15 +25,20 @@ train       optax-form AMSGrad, the joint train step (loss scaling),
 compat      flax variables / reference .pth -> PyTorch state_dict bridge;
             seeded weights on the bench checkpoint for the other models
 serve       wav -> events -> XML serving engine (batched, pipelined
-            stream, on-device windowed merging) and ``StreamingSed``
+            stream, resident file passes, the ragged v6 pass, on-device
+            windowed merging) and ``StreamingSed``
 post        event decoding, overlap-add merging, XML
-native      the g++-built host event decoder (numpy fallback)
-data        audio I/O and wire constants; label csvs, HDF5 packing, the
+native      the g++-built host event decoder and ADPCM encoder (numpy
+            fallbacks)
+data        audio I/O and every wire codec, saver and file reader; label
+            csvs, HDF5 packing, the
             HDF5 datasets, samplers and loaders; the AudioSet downloader
 eval        Evaluator: forward over a split, AP and segment metrics
 thresholds  the numpy threshold optimizer
-utils       .npz checkpoints, workspace paths, statistics, logging
-cli         ``features`` (packing), ``download``, ``predict``,
+utils       .npz checkpoints, workspace paths, statistics, logging,
+            profiler traces and step timing
+cli         ``features`` (packing), ``download``, ``predict`` (and
+            ``--resident``, ``predict_asr``),
             ``main_strong`` (training and inference), ``main`` (weak-only
             training), ``optimize_thresholds`` and ``calculate_metrics``
 

@@ -40,6 +40,13 @@ CLASSES_NUM: int = len(LABELS)
 LB_TO_IDX: Dict[str, int] = {lb: i for i, lb in enumerate(LABELS)}
 IDX_TO_LB: Dict[int, str] = {i: lb for i, lb in enumerate(LABELS)}
 
+# Speech-like classes eligible for ASR transcription
+# (reference pytorch/predict.py:453).
+SPEECH_LABELS: Tuple[str, ...] = (
+    'Child_speech_kid_speaking', 'Conversation',
+    'Female_speech_woman_speaking', 'Male_speech_man_speaking',
+)
+
 AUDIO_DURATION: int = 10  # seconds per training clip (utils/config.py:2)
 
 

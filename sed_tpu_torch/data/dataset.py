@@ -71,9 +71,9 @@ class AudiosetDataset:
         elif self.wire == 'adpcm4':
             # whole-batch on purpose (unlike qN below): the adpcm cost
             # is the spb-step recursion, not cache-sized intermediates;
-            # the port has sed_tpu's numpy encoder (bit-exact to its
-            # native one), not the native one
-            out = audio_io.adpcm_encode_np(w)
+            # the native encoder (numpy where g++ is missing, bit-exact)
+            # loops rows itself either way
+            out = audio_io.adpcm_encode(w)
         else:
             # PER-CLIP encode on purpose: one (24, 160000) batch
             # qn_encode builds ~23 MB of bit-matrix intermediates and

@@ -3,74 +3,22 @@
 
 The shared library is built from ``csrc/vad_decoder.cc`` with g++ on
 first use into the git-ignored ``build/sed_tpu_torch/`` at the
-repository root, under a name that carries a hash of the source and the
-flags (plain ctypes keeps the binding dependency-free).  This is a host
-decoder, not a device kernel: when no compiler is available it falls
-back to the numpy decoder, and callers check ``native_available()``.
+repository root (``native/_gxx.py``).  This is a host decoder, not a
+device kernel: when no compiler is available it falls back to the numpy
+decoder, and callers check ``native_available()``.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import logging
-import os
-import subprocess
-import threading
 from typing import List, Optional, Tuple
 
 import numpy as np
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG, 'csrc', 'vad_decoder.cc')
-_FLAGS = ('-O3', '-shared', '-fPIC', '-std=c++17')
-_BUILD_DIR = os.path.join(os.path.dirname(_PKG), 'build', 'sed_tpu_torch')
+from sed_tpu_torch.native._gxx import HostLibrary
 
 
-def _lib_path() -> str:
-    h = hashlib.sha256(' '.join(_FLAGS).encode())
-    with open(_SRC, 'rb') as f:
-        h.update(f.read())
-    return os.path.join(_BUILD_DIR,
-                        f'libvad_decoder-{h.hexdigest()[:16]}.so')
-
-
-_lib = None
-_lock = threading.Lock()
-_build_failed = False
-
-
-def _compile(out_path: str) -> None:
-    # build into a private temp file and rename into place: os.rename is
-    # atomic, so concurrent processes (test workers, multi-host ranks on
-    # a shared filesystem) never dlopen a half-written ELF
-    tmp = f'{out_path}.tmp.{os.getpid()}'
-    try:
-        subprocess.run(['g++', *_FLAGS, _SRC, '-o', tmp], check=True,
-                       capture_output=True)
-        os.rename(tmp, out_path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-
-
-def _build() -> Optional[ctypes.CDLL]:
-    global _build_failed
-    try:
-        path = _lib_path()
-        if not os.path.isfile(path):
-            os.makedirs(_BUILD_DIR, exist_ok=True)
-            _compile(path)
-        try:
-            lib = ctypes.CDLL(path)
-        except OSError:
-            # foreign-arch binary on disk: rebuild once and retry
-            _compile(path)
-            lib = ctypes.CDLL(path)
-    except (OSError, subprocess.CalledProcessError) as exc:
-        logging.warning('native vad decoder unavailable: %s', exc)
-        _build_failed = True
-        return None
+def _bind(lib: ctypes.CDLL) -> None:
     lib.sed_decode_tracks.restype = ctypes.c_int
     lib.sed_decode_tracks.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p,
@@ -78,17 +26,17 @@ def _build() -> Optional[ctypes.CDLL]:
         ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
     ]
-    return lib
+
+
+_LIB = HostLibrary('vad_decoder.cc', _bind)
+
+
+def _lib_path() -> str:
+    return _LIB.path()
 
 
 def _get_lib() -> Optional[ctypes.CDLL]:
-    global _lib
-    if _lib is not None or _build_failed:
-        return _lib
-    with _lock:
-        if _lib is None and not _build_failed:
-            _lib = _build()
-    return _lib
+    return _LIB.get()
 
 
 def native_available() -> bool:

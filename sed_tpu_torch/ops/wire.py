@@ -19,16 +19,27 @@ ops on the tensor's device:
 
 Every uint8 width is tied to the decoded clip length: ``dequant_wire``
 needs ``samples`` for a uint8 buffer, and rejects a width that is no
-wire's.  The v6 ragged pool is not ported yet.
+wire's.
+
+The v6 wire (``audio_io.v6_encode_clip``, the lossless variable-rate
+re-pack of q6) has a byte length per clip, so a batch comes as one flat
+int32 word pool and per-clip word offsets: ``dequant_v6_pool``.  Its
+header parse, width prefix sums, word gathers and sub-group unpacks are
+vectorised torch integer ops; the 128-step predictor recurrence of each
+(clip, block) lane is the CUDA kernel ``csrc/v6_predict.cu`` on the card
+(``_v6_predict``) and a loop over the steps on the CPU
+(``_v6_predict_plain``).
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 
 import torch
 
+from sed_tpu_torch import _build
 from sed_tpu_torch.data import audio_io
 
 _ADPCM_GROUP = 24   # prefix block of the ADPCM chains; divides 504/672/1008
@@ -220,3 +231,181 @@ def _adpcm_decode(wav: torch.Tensor, samples: int, bits: int
     out = torch.cat([pred0[:, None], preds], dim=1)      # (lanes, spb)
     out = out.reshape(b, nbl * spb)[:, :samples]
     return out.to(torch.float32) / 32768.0
+
+
+# ---------------------------------------------------------------------------
+# v6 ragged wire: the lossless variable-rate re-pack of q6
+# (``audio_io.v6_encode_clip``'s section comment is the format).  Clips
+# have different byte lengths, so a batch arrives as one flat
+# little-endian word pool plus per-clip word offsets; the fixed-shape
+# gather to the worst-case width happens on the device.
+# ---------------------------------------------------------------------------
+
+
+def _words_to_bytes(w: torch.Tensor) -> torch.Tensor:
+    """int32 words (..., W) -> little-endian int32 bytes (..., 4W)."""
+    by = torch.stack([w & 0xFF, (w >> 8) & 0xFF,
+                      (w >> 16) & 0xFF, (w >> 24) & 0xFF], dim=-1)
+    return by.reshape(*w.shape[:-1], w.shape[-1] * 4)
+
+
+def _v6_predict_plain(r: torch.Tensor, order: torch.Tensor,
+                      coef: torch.Tensor, init1: torch.Tensor,
+                      init2: torch.Tensor, scale: torch.Tensor
+                      ) -> torch.Tensor:
+    """The predictor recurrence in torch ops, one step at a time over
+    the 128 samples of a block, vectorised over lanes (``sed_tpu``'s
+    ``lax.scan`` step): ``q_t = r_t + pred`` with pred 0, ``q_{t-1}``,
+    ``2 q_{t-1} - q_{t-2}`` or ``((coef q_{t-1} + 16) >> 5) - q_{t-2}``
+    by the lane's order, in int32; returns ``q * scale`` as float32.
+
+    ``r`` is (lanes, 128) int32, the others (lanes,)."""
+    qp, qp2 = init1, init2
+    q = torch.empty_like(r)
+    for t in range(r.shape[1]):
+        pred = torch.where(
+            order == 1, qp, torch.where(
+                order == 2, 2 * qp - qp2, torch.where(
+                    order == 3, ((coef * qp + 16) >> 5) - qp2,
+                    torch.zeros_like(qp))))
+        q[:, t] = r[:, t] + pred
+        qp2, qp = qp, q[:, t]
+    return q.to(torch.float32) * scale[:, None]
+
+
+@functools.lru_cache(maxsize=None)
+def _v6_library() -> _build.KernelLibrary:
+    kl = _build.load('v6_predict')
+    fn = kl.lib.sed_v6_predict
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p]
+    return kl
+
+
+def _v6_predict(r: torch.Tensor, order: torch.Tensor, coef: torch.Tensor,
+                init1: torch.Tensor, init2: torch.Tensor,
+                scale: torch.Tensor) -> torch.Tensor:
+    """(lanes, 128) residuals -> (lanes, 128) float32 samples: the CUDA
+    kernel ``csrc/v6_predict.cu`` for CUDA tensors, ``_v6_predict_plain``
+    for CPU tensors (no fallback on the card).
+    ``_v6_predict.launches`` counts kernel launches."""
+    if r.device.type == 'cpu':
+        return _v6_predict_plain(r, order, coef, init1, init2, scale)
+    if r.device.type != 'cuda':
+        raise ValueError(f'_v6_predict: unsupported device {r.device}')
+    lanes = r.shape[0]
+    if r.dim() != 2 or r.shape[1] != audio_io.Q4_BLOCK:
+        raise ValueError(f'_v6_predict wants (lanes, {audio_io.Q4_BLOCK}) '
+                         f'residuals, got {tuple(r.shape)}')
+    for name, x, dtype in (('r', r, torch.int32),
+                           ('order', order, torch.int32),
+                           ('coef', coef, torch.int32),
+                           ('init1', init1, torch.int32),
+                           ('init2', init2, torch.int32),
+                           ('scale', scale, torch.float32)):
+        if x.dtype != dtype or x.device != r.device or \
+                not x.is_contiguous():
+            raise ValueError(f'_v6_predict: {name} must be a contiguous '
+                             f'{dtype} tensor on {r.device}, got {x.dtype} '
+                             f'on {x.device}')
+        if name != 'r' and tuple(x.shape) != (lanes,):
+            raise ValueError(f'_v6_predict: {name} must be ({lanes},), got '
+                             f'{tuple(x.shape)}')
+    out = torch.empty((lanes, audio_io.Q4_BLOCK), dtype=torch.float32,
+                      device=r.device)
+    if lanes == 0:
+        return out
+    kl = _v6_library()
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        rc = kl.lib.sed_v6_predict(
+            r.data_ptr(), order.data_ptr(), coef.data_ptr(),
+            init1.data_ptr(), init2.data_ptr(), scale.data_ptr(),
+            out.data_ptr(), lanes, stream)
+    if rc != 0:
+        raise RuntimeError(f'v6 predictor kernel launch failed: '
+                           f'{kl.error_string(rc)} ({rc})')
+    _v6_predict.launches += 1
+    return out
+
+
+_v6_predict.launches = 0
+
+
+def _i8(v: torch.Tensor) -> torch.Tensor:
+    """Unsigned byte values -> their int8 reading, in int32."""
+    return ((v + 128) & 255) - 128
+
+
+def v6_fields(pool: torch.Tensor, offsets: torch.Tensor, samples: int):
+    """Everything of a batch of v6 clips but the recurrence: the
+    (B * nb, 128) int32 residuals and the per-lane order, coef, init1,
+    init2 (int32) and float32 scale that ``_v6_predict`` takes."""
+    nb = samples // audio_io.Q4_BLOCK
+    nsub = nb * audio_io._V6_NSUB
+    hw = audio_io.v6_header_bytes(nb) // 4
+    b = offsets.shape[0]
+    pmax = pool.shape[0] - 1
+    dev = pool.device
+    offsets = offsets.to(torch.int32)
+
+    # header: one contiguous gather, then byte fields
+    hidx = (offsets[:, None] + torch.arange(hw, dtype=torch.int32,
+                                            device=dev)).clamp(0, pmax)
+    hby = _words_to_bytes(pool[hidx.long()])               # (B, hw * 4)
+    u16 = hby[:, 0:2 * nb:2] | (hby[:, 1:2 * nb:2] << 8)
+    scale = torch.where(u16 >= 32768, u16 - 65536, u16).to(
+        torch.int16).view(torch.float16).to(torch.float32)  # (B, nb)
+    mode = hby[:, 2 * nb:4 * nb:2] | (hby[:, 2 * nb + 1:4 * nb:2] << 8)
+    order = mode & 3
+    init1 = _i8(hby[:, 4 * nb:5 * nb])
+    init2 = _i8(hby[:, 5 * nb:6 * nb])
+    coef = _i8(hby[:, 6 * nb:7 * nb])
+
+    shifts = 2 + 3 * torch.arange(audio_io._V6_NSUB, dtype=torch.int32,
+                                  device=dev)
+    widths = ((mode[:, :, None] >> shifts) & 7).reshape(b, nsub)
+    # sub-group data = width words each; offsets by exclusive prefix
+    doff = (offsets[:, None] + hw
+            + torch.cumsum(widths, dim=1, dtype=torch.int32) - widths)
+    didx = (doff[:, :, None] + torch.arange(
+        audio_io.V6_BITS, dtype=torch.int32, device=dev)).clamp(0, pmax)
+    dby = _words_to_bytes(pool[didx.long()])               # (B, nsub, 24)
+
+    r = torch.zeros((b, nsub, audio_io.V6_SUB), dtype=torch.int32,
+                    device=dev)
+    for w in range(1, audio_io.V6_BITS + 1):
+        codes = _unpack_codes(dby[:, :, :4 * w], w)        # (B, nsub, 32)
+        r = torch.where((widths == w)[:, :, None],
+                        codes - (1 << (w - 1)), r)
+    lanes = b * nb
+    return (r.reshape(lanes, audio_io.Q4_BLOCK), order.reshape(lanes),
+            coef.reshape(lanes), init1.reshape(lanes),
+            init2.reshape(lanes), scale.reshape(lanes))
+
+
+def dequant_v6_pool(pool: torch.Tensor, offsets: torch.Tensor,
+                    samples: int) -> torch.Tensor:
+    """Decode a batch of v6 clips from a flat word pool.
+
+    ``pool``: (P,) int32 — concatenated per-clip v6 payloads (each a
+    multiple of 16 bytes, little-endian), plus >= v6_header_bytes of
+    zero tail, so that a padding clip (its offset pointing into the tail)
+    decodes to silence.  ``offsets``: (B,) int32 word offset of each
+    clip's payload.  Returns (B, samples) float32 on the pool's device,
+    bit-identical to ``audio_io.v6_decode_np`` per clip (which is
+    bit-identical to the q6 wire's decode).  Indices are clipped to
+    ``P - 1`` as ``sed_tpu`` clips them.
+
+    The gathers and unpacks are a fixed number of torch launches
+    (``v6_fields``); the recurrence is one ``_v6_predict`` launch.
+    """
+    if pool.dtype != torch.int32 or pool.dim() != 1:
+        raise ValueError(f'dequant_v6_pool wants a (P,) int32 pool, got '
+                         f'{tuple(pool.shape)} {pool.dtype}')
+    if samples % audio_io.Q4_BLOCK:
+        raise ValueError(f'v6 clips hold whole {audio_io.Q4_BLOCK}-sample '
+                         f'blocks, not {samples} samples')
+    b = offsets.shape[0]
+    return _v6_predict(*v6_fields(pool, offsets.to(pool.device),
+                                  samples)).reshape(b, samples)

@@ -15,6 +15,17 @@ Wires: ``predict_clips``, ``predict_clips_stream`` and
 ``predict_clips_windowed`` takes the same wires of its whole clips, with
 ``clip_samples`` naming their decoded length.
 
+Resident passes (``predict_clips_resident``, ``predict_files_resident``):
+a whole pass is copied to the device at once from pinned host memory
+(file reads in threads straight into it), and every batch is sliced,
+decoded and run there before one pull.  The v6 wire has a byte length per
+clip, so its pass (``predict_files_resident_ragged``,
+``predict_rows_resident``) uploads one flat pool of the true bytes and
+the clips' offsets, and ``ops.wire.dequant_v6_pool`` decodes each batch.
+``sed_tpu``'s knobs for its remote link (launch groups and chunks, pull
+formats, upload deadlines) have no counterpart: on the card the upload is
+a small share of a batch.
+
 Window schedule (reference ``predict.py:296-338``): windows advance 1 s
 with ``overlap`` else ``sample_duration`` s; window n >= 1 runs only
 while ``start + sample_duration <= duration``; a short file still gets
@@ -39,7 +50,9 @@ import copy
 import os
 import queue
 import threading
-from typing import Iterable, List, Optional, Sequence, Tuple
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -173,6 +186,44 @@ class SedInferenceEngine:
         wav = torch.zeros((1, self.window_samples), device=self.device)
         return self.model(wav)['framewise_output'].shape[1]
 
+    def _sync(self) -> None:
+        if self.device.type == 'cuda':
+            torch.cuda.synchronize(self.device)
+
+    def warmup(self, example: Optional[np.ndarray] = None) -> None:
+        """One batched forward in the wire format of ``example`` (a
+        (batch_size, W) batch; float32 zeros by default), so that the
+        kernels are built and cuDNN has chosen its algorithms before a
+        timed call."""
+        z = example if example is not None else np.zeros(
+            (self.batch_size, self.window_samples), np.float32)
+        assert z.shape[0] == self.batch_size, (z.shape, self.batch_size)
+        self._check_clip_widths(z)
+        self._forward(z)
+        self._sync()
+
+    @torch.inference_mode()
+    def measure_forward_ms(self, iters: int = 8) -> float:
+        """Device ms per batched forward of float32 zeros: CUDA events
+        around ``iters`` forwards queued back to back after one warm-up
+        forward (on the CPU, the host clock around them)."""
+        wav = torch.zeros((self.batch_size, self.window_samples),
+                          device=self.device)
+        self.model(wav)
+        if self.device.type != 'cuda':
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                self.model(wav)
+            return (time.perf_counter() - t0) * 1e3 / iters
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            self.model(wav)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
+
     def _shares(self, rows: np.ndarray, fn):
         """``fn(model, rows on its device)`` -> tuple of tensors, for each
         replica's even, contiguous share of ``rows``: every share's work
@@ -190,13 +241,15 @@ class SedInferenceEngine:
         return tuple(torch.cat([o[i].to(self.device) for o in outs])
                      for i in range(len(outs[0])))
 
+    def _run(self, model: torch.nn.Module, rows: torch.Tensor):
+        """Wire rows (or decoded float32 rows) already on ``model``'s
+        device -> (framewise, clipwise) on that device."""
+        out = model(wire_ops.dequant_wire(rows, samples=self.window_samples))
+        return out['framewise_output'], out['clipwise_output']
+
     @torch.inference_mode()
     def _forward(self, wire: np.ndarray):
-        def run(model, rows):
-            out = model(wire_ops.dequant_wire(rows,
-                                              samples=self.window_samples))
-            return out['framewise_output'], out['clipwise_output']
-        return self._shares(wire, run)
+        return self._shares(wire, self._run)
 
     def _check_clip_widths(self, wavs: np.ndarray) -> None:
         """(N, W) clips whose width is ``window_samples`` or a uint8
@@ -325,33 +378,48 @@ class SedInferenceEngine:
                     'offset': fin / fps,
                     'event_label': self.labels[int(act_c[j])]})
 
-    def _events_on_device(self, framewise: torch.Tensor,
-                          names: List[str]) -> List[List[dict]]:
+    def _pull_tracks(self, framewise: torch.Tensor):
         """Coverage-normalised (N, T, C) framewise output on the device ->
-        per-clip event lists.
+        (active clip and class indices, their packed high and low masks
+        on the host, bytes pulled).
 
         One pull of the (N, C) track maxima picks the active tracks
         (max > high threshold); their high/low masks (``>`` high, ``>=``
         low, float32 thresholds) are made on the device and pulled in one
-        transfer, then decoded on the host.
+        transfer.
         """
-        n, t_frames, _ = framewise.shape
         high = np.asarray(self._params['sed_high_threshold'], np.float64)
         track_max = framewise.amax(dim=1).cpu().numpy()     # one pull
         act_n, act_c = np.nonzero(track_max > high[None, :])
+        pulled = track_max.nbytes
+        if not act_n.size:
+            return act_n, act_c, None, None, pulled
+        idx_n = torch.from_numpy(act_n).to(self.device)
+        idx_c = torch.from_numpy(act_c).to(self.device)
+        tracks = framewise[idx_n, :, idx_c]                 # (K, T)
+        masks = torch.cat([tracks > self._high_dev[idx_c][:, None],
+                           tracks >= self._low_dev[idx_c][:, None]])
+        masks = masks.cpu().numpy()                         # one pull
+        k = act_n.size
+        return (act_n, act_c, np.packbits(masks[:k], axis=1),
+                np.packbits(masks[k:], axis=1), pulled + masks.nbytes)
+
+    def _decode_pulled(self, pulled, n: int, names: List[str],
+                       t_frames: int) -> List[List[dict]]:
+        act_n, act_c, high_packed, low_packed, _ = pulled
         per_clip: List[List[dict]] = [[] for _ in range(n)]
         if act_n.size:
-            idx_n = torch.from_numpy(act_n).to(self.device)
-            idx_c = torch.from_numpy(act_c).to(self.device)
-            tracks = framewise[idx_n, :, idx_c]             # (K, T)
-            masks = torch.cat([tracks > self._high_dev[idx_c][:, None],
-                               tracks >= self._low_dev[idx_c][:, None]])
-            masks = masks.cpu().numpy()                     # one pull
-            k = act_n.size
-            self._decode_tracks_into(
-                per_clip, names, np.packbits(masks[:k], axis=1),
-                np.packbits(masks[k:], axis=1), act_n, act_c, t_frames)
+            self._decode_tracks_into(per_clip, names, high_packed,
+                                     low_packed, act_n, act_c, t_frames)
         return per_clip
+
+    def _events_on_device(self, framewise: torch.Tensor,
+                          names: List[str]) -> List[List[dict]]:
+        """Coverage-normalised (N, T, C) framewise output on the device ->
+        per-clip event lists: ``_pull_tracks``, then the host decode."""
+        n, t_frames, _ = framewise.shape
+        return self._decode_pulled(self._pull_tracks(framewise), n, names,
+                                   t_frames)
 
     @torch.inference_mode()
     def predict_clips(self, wavs: np.ndarray,
@@ -543,3 +611,260 @@ class SedInferenceEngine:
                 acc[:, w * interval:w * interval + t_win] += fw[:, w]
             merged.append(acc / coverage[None, :, None])
         return self._events_on_device(torch.cat(merged), names)
+
+    # ------------------------------------------------------------------
+    # resident passes: one upload of a whole pass, every batch's decode
+    # and forward on the device, one pull
+    # ------------------------------------------------------------------
+
+    _RAGGED_TAIL_WORDS = 2048   # zero tail of a v6 pool: it bounds the
+    # worst-case header and data gathers past the last payload
+
+    def _single_device(self, what: str) -> None:
+        if len(self.devices) > 1:
+            raise ValueError(f'{what} serves on one device; this engine '
+                             f'has {len(self.devices)} (use predict_clips)')
+
+    def _host_buffer(self, shape, dtype) -> torch.Tensor:
+        """An empty host tensor of numpy ``dtype``, pinned when the engine
+        is on the card (so that its upload is one DMA)."""
+        return torch.empty(shape, dtype=torch.from_numpy(
+            np.empty(0, dtype)).dtype,
+            pin_memory=self.device.type == 'cuda')
+
+    def _upload(self, host: torch.Tensor) -> torch.Tensor:
+        dev = host.to(self.device, non_blocking=True)
+        self._sync()
+        return dev
+
+    @staticmethod
+    def _byte_balanced(bounds: np.ndarray, threads: int
+                       ) -> List[Tuple[int, int]]:
+        """Row ranges [lo, hi) for at most ``threads`` readers, cut where
+        the cumulative size ``bounds`` (n + 1 entries from 0) is closest
+        to an even share."""
+        n = len(bounds) - 1
+        k = max(1, min(int(threads), n))
+        cuts = [int(np.searchsorted(bounds, bounds[-1] * i / k))
+                for i in range(k + 1)]
+        cuts[0], cuts[-1] = 0, n
+        cuts = sorted(set(cuts))
+        return list(zip(cuts[:-1], cuts[1:]))
+
+    @staticmethod
+    def _read_shares(shares: Sequence[Tuple[int, int]], read_rows) -> None:
+        """``read_rows(lo, hi)`` for each (lo, hi) share, one thread a
+        share; the first exception is raised here."""
+        if len(shares) == 1:
+            read_rows(*shares[0])
+            return
+        with ThreadPoolExecutor(len(shares)) as pool:
+            for f in [pool.submit(read_rows, lo, hi) for lo, hi in shares]:
+                f.result()
+
+    @torch.inference_mode()
+    def _serve_resident(self, rows_of: Callable[[int, int], torch.Tensor],
+                        n: int, names: List[str],
+                        telemetry: Optional[dict], times: dict,
+                        bytes_h2d: int
+                        ) -> Tuple[List[List[dict]], List[str]]:
+        """``rows_of(i0, i1)``: clips [i0, i1) on the device, as wire rows
+        or decoded.  Per batch the forward and coverage normalisation,
+        then one pull of the whole pass (``_pull_tracks``), the host
+        decode and the XML, as ``predict_clips`` does."""
+        t1 = time.perf_counter()
+        framewise = []
+        for i0 in range(0, n, self.batch_size):
+            fw, _ = self._run(self.model,
+                              rows_of(i0, min(n, i0 + self.batch_size)))
+            framewise.append(fw / self._coverage[None, :, None])
+        framewise = torch.cat(framewise)
+        t2 = time.perf_counter()
+        pulled = self._pull_tracks(framewise)
+        t3 = time.perf_counter()
+        per_clip = self._decode_pulled(pulled, n, names, framewise.shape[1])
+        xmls = self._clip_xmls(per_clip, names)
+        if telemetry is not None:
+            telemetry.update(times, launch_s=t2 - t1, pull_s=t3 - t2,
+                             decode_s=time.perf_counter() - t3,
+                             bytes_h2d=int(bytes_h2d),
+                             bytes_d2h=int(pulled[-1]),
+                             n_batches=-(-n // self.batch_size))
+        return per_clip, xmls
+
+    def predict_clips_resident(self, wavs: np.ndarray,
+                               names: Optional[List[str]] = None,
+                               telemetry: Optional[dict] = None
+                               ) -> Tuple[List[List[dict]], List[str]]:
+        """``predict_clips`` with the whole of ``wavs`` uploaded at once:
+        one copy from pinned host memory, then per batch a slice on the
+        device -> wire decode -> forward, then one pull of the track
+        maxima and masks of the pass.  Results identical to
+        ``predict_clips``.  ``telemetry``, when given a dict, gets the
+        phase wall times (``read_s`` 0, ``upload_s``, ``launch_s``: the
+        batches queued, ``pull_s``: until the masks are on the host,
+        ``decode_s``: events and XML), ``bytes_h2d``, ``bytes_d2h`` and
+        ``n_batches``.  One device.
+        """
+        self._single_device('predict_clips_resident')
+        n = wavs.shape[0]
+        if names is None:
+            names = [f'clip{i}.wav' for i in range(n)]
+        self._check_clip_widths(wavs)
+        t0 = time.perf_counter()
+        host = self._host_buffer(wavs.shape, wavs.dtype)
+        host.numpy()[:] = wavs
+        dev = self._upload(host)
+        return self._serve_resident(
+            lambda i0, i1: dev[i0:i1], n, names, telemetry,
+            dict(read_s=0.0, upload_s=time.perf_counter() - t0),
+            host.nbytes)
+
+    def predict_files_resident(self, paths: Sequence[str], reader,
+                               names: Optional[List[str]] = None,
+                               upload_threads: int = 4,
+                               telemetry: Optional[dict] = None,
+                               max_pass_clips: Optional[int] = None
+                               ) -> Tuple[List[List[dict]], List[str]]:
+        """File-list variant of ``predict_clips_resident``:
+        ``reader(path)`` returns the 1-D wire row of one clip (any format
+        ``predict_clips`` accepts, e.g. ``audio_io.wire_reader_for``'s);
+        all files must give the same width and dtype.  ``upload_threads``
+        threads read their contiguous share of the files straight into
+        the pinned pass buffer, which is then uploaded once.  Results
+        identical to reading everything and calling ``predict_clips``.
+
+        ``max_pass_clips`` bounds device memory: the files are served in
+        passes of at most that many clips, with results identical to one
+        pass; ``telemetry`` then sums over the passes and gets
+        ``passes``.  ``read_s`` is the reads' wall time, ``upload_s``
+        the copy's.
+        """
+        self._single_device('predict_files_resident')
+        if not len(paths):
+            raise ValueError('predict_files_resident: empty file list')
+        n = len(paths)
+        if names is None:
+            names = [os.path.basename(p) for p in paths]
+        if max_pass_clips is not None and n > int(max_pass_clips):
+            step = int(max_pass_clips)
+            if step < 1:
+                raise ValueError(f'max_pass_clips must be >= 1, got {step}')
+            events: List[List[dict]] = []
+            xmls: List[str] = []
+            acc: dict = {}
+            for lo in range(0, n, step):
+                tel = {} if telemetry is not None else None
+                ev, xs = self.predict_files_resident(
+                    paths[lo:lo + step], reader, names[lo:lo + step],
+                    upload_threads, tel)
+                events.extend(ev)
+                xmls.extend(xs)
+                for k, v in (tel or {}).items():
+                    acc[k] = acc.get(k, 0) + v
+            if telemetry is not None:
+                telemetry.update(acc, passes=-(-n // step))
+            return events, xmls
+        t0 = time.perf_counter()
+        first = np.asarray(reader(paths[0]))
+        self._check_clip_widths(first[None])
+        host = self._host_buffer((n,) + first.shape, first.dtype)
+        buf = host.numpy()
+        buf[0] = first
+
+        def read_rows(lo: int, hi: int) -> None:
+            for j in range(max(lo, 1), hi):
+                row = np.asarray(reader(paths[j]))
+                if row.shape != first.shape or row.dtype != first.dtype:
+                    raise ValueError(
+                        f'{paths[j]}: wire row {row.shape} {row.dtype}, the '
+                        f'first file gave {first.shape} {first.dtype}')
+                buf[j] = row
+
+        self._read_shares(self._byte_balanced(np.arange(n + 1),
+                                              upload_threads), read_rows)
+        t1 = time.perf_counter()
+        dev = self._upload(host)
+        return self._serve_resident(
+            lambda i0, i1: dev[i0:i1], n, names, telemetry,
+            dict(read_s=t1 - t0, upload_s=time.perf_counter() - t1),
+            host.nbytes)
+
+    def _ragged_plan(self, payload_bytes: Sequence[int], n_threads: int):
+        """Plan a ragged pass: each clip's word offset in the pool, the
+        reader threads' row chunks balanced by bytes, and the byte bounds
+        of the payloads in the pool."""
+        pb = np.asarray(payload_bytes, np.int64)
+        if (pb % 16).any():
+            raise ValueError('v6 payloads are 16-byte padded')
+        bounds_b = np.concatenate([[0], np.cumsum(pb)])
+        return ((bounds_b[:-1] // 4).astype(np.int32),
+                self._byte_balanced(bounds_b, n_threads), bounds_b)
+
+    def predict_files_resident_ragged(
+            self, paths: Sequence, reader,
+            names: Optional[List[str]] = None,
+            upload_threads: int = 4,
+            telemetry: Optional[dict] = None,
+            payload_bytes: Optional[Sequence[int]] = None
+            ) -> Tuple[List[List[dict]], List[str]]:
+        """Ragged-wire variant of ``predict_files_resident``:
+        ``reader(path)`` returns each clip's variable-length uint8 v6
+        payload (``audio_io.read_v6``'s first item).  The pass uploads
+        one flat pool of exactly the true bytes plus a zero tail of
+        ``_RAGGED_TAIL_WORDS`` words, and the clips' word offsets; each
+        batch is decoded on the device by ``ops.wire.dequant_v6_pool``.
+        Results identical to the q6 wire's (the v6 decode is
+        bit-identical).  ``payload_bytes`` skips the size stat
+        (``audio_io.v6_payload_bytes``) when the caller knows the sizes.
+        One device.
+        """
+        self._single_device('predict_files_resident_ragged')
+        if not len(paths):
+            raise ValueError('predict_files_resident_ragged: empty file '
+                             'list')
+        n = len(paths)
+        if names is None:
+            names = [os.path.basename(p) for p in paths]
+        if payload_bytes is None:
+            payload_bytes = [audio_io.v6_payload_bytes(p) for p in paths]
+        offsets, chunks, bounds_b = self._ragged_plan(payload_bytes,
+                                                      upload_threads)
+        t0 = time.perf_counter()
+        host = self._host_buffer(
+            (int(bounds_b[-1]) + 4 * self._RAGGED_TAIL_WORDS,), np.uint8)
+        buf = host.numpy()
+        buf[bounds_b[-1]:] = 0
+
+        def read_rows(lo: int, hi: int) -> None:
+            for j in range(lo, hi):
+                row = np.asarray(reader(paths[j]))
+                if row.dtype != np.uint8 or row.nbytes != payload_bytes[j]:
+                    raise ValueError(
+                        f'{paths[j]}: {row.nbytes} bytes of {row.dtype}, '
+                        f'expected {payload_bytes[j]} uint8')
+                buf[bounds_b[j]:bounds_b[j + 1]] = row
+
+        self._read_shares(chunks, read_rows)
+        t1 = time.perf_counter()
+        pool = self._upload(host.view(torch.int32))
+        offs = torch.from_numpy(offsets).to(self.device)
+        samples = self.window_samples
+        return self._serve_resident(
+            lambda i0, i1: wire_ops.dequant_v6_pool(pool, offs[i0:i1],
+                                                    samples),
+            n, names, telemetry,
+            dict(read_s=t1 - t0, upload_s=time.perf_counter() - t1),
+            host.nbytes + offsets.nbytes)
+
+    def predict_rows_resident(self, rows_list: Sequence[np.ndarray],
+                              names: Optional[List[str]] = None
+                              ) -> Tuple[List[List[dict]], List[str]]:
+        """In-memory ragged predict: each element of ``rows_list`` is one
+        clip's variable-length uint8 v6 payload; results identical to
+        the file path."""
+        return self.predict_files_resident_ragged(
+            list(range(len(rows_list))), lambda i: rows_list[i],
+            names=names or [f'clip{i}.wav' for i in range(len(rows_list))],
+            upload_threads=1,
+            payload_bytes=[int(np.asarray(r).nbytes) for r in rows_list])

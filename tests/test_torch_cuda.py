@@ -632,3 +632,74 @@ def test_cuda_dp_step_in_a_one_rank_gloo_group(device, tmp_path):
     floor = 1e-6 * max(g.abs().max() for g in gp.values())
     for k, g in gp.items():
         assert (gd[k] - g).abs().max() <= 1e-5 * g.abs().max() + floor, k
+
+
+def _v6_pool(clips):
+    from sed_tpu_torch.data import audio_io
+    rows = [audio_io.v6_encode_clip(x) for x in clips]
+    pool = np.concatenate(rows + [np.zeros(8192, np.uint8)])
+    offsets = np.concatenate([[0], np.cumsum([r.nbytes for r in rows])])
+    return rows, pool.view(np.int32), (offsets // 4).astype(np.int32)
+
+
+def test_cuda_v6_predictor_kernel_bit_exact(device):
+    """``csrc/v6_predict.cu`` against its plain version on the card and
+    ``v6_decode_np``, bitwise, on bench-corpus clips, a 7.9 kHz tone, a
+    padding row, and hand-made lanes whose order-3 recurrence wraps
+    int32."""
+    from sed_tpu_torch.bench_corpus import make_clips
+    from sed_tpu_torch.data import audio_io
+    from sed_tpu_torch.ops import wire
+    t = np.arange(80000) / 16000
+    clips = np.concatenate([make_clips(5, 16000, seconds=5, seed=12),
+                            (0.9 * np.sin(2 * np.pi * 7900 * t))[None]
+                            ]).astype(np.float32)
+    rows, pool, offsets = _v6_pool(clips)
+    fields = wire.v6_fields(torch.from_numpy(pool).to(device),
+                            torch.from_numpy(offsets).to(device), 80000)
+    before = wire._v6_predict.launches
+    got = wire._v6_predict(*fields)
+    assert wire._v6_predict.launches == before + 1
+    want = wire._v6_predict_plain(*fields)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    dec = wire.dequant_v6_pool(torch.from_numpy(pool).to(device),
+                               torch.from_numpy(offsets).to(device), 80000)
+    dec = dec.cpu().numpy()
+    for i, row in enumerate(rows):
+        assert np.array_equal(dec[i].view(np.int32), audio_io.v6_decode_np(
+            row, 80000).view(np.int32))
+    assert not dec[-1].view(np.int32).any()
+    rng = np.random.RandomState(0)
+    lanes = 300
+    args = [rng.randint(-32, 32, (lanes, 128)), np.arange(lanes) % 4,
+            rng.randint(-128, 128, lanes), rng.randint(-128, 128, lanes),
+            rng.randint(-128, 128, lanes)]
+    args = [torch.from_numpy(a.astype(np.int32)).to(device) for a in args]
+    args.append(torch.from_numpy(rng.uniform(1e-3, 3e-2, lanes).astype(
+        np.float32)).to(device))
+    assert torch.equal(wire._v6_predict(*args).view(torch.int32),
+                       wire._v6_predict_plain(*args).view(torch.int32))
+    with pytest.raises(ValueError, match='contiguous'):
+        wire._v6_predict(args[0], *[a.double() if i == 4 else a
+                                    for i, a in enumerate(args[1:])])
+
+
+def test_cuda_resident_passes_match_cpu(device):
+    """``predict_clips_resident`` (q6) and ``predict_rows_resident`` (v6)
+    on the card: events and XML identical to the CPU engine's, and the
+    v6 pass equal to the q6 wire's."""
+    from sed_tpu_torch.bench_corpus import make_clips
+    from sed_tpu_torch.data import audio_io
+    cfg = config.AUDIO_16K
+    gpu = engine.SedInferenceEngine(load_npz(CKPT, MODEL, cfg, device), cfg,
+                                    device, batch_size=8)
+    cpu = engine.SedInferenceEngine(load_npz(CKPT, MODEL, cfg, 'cpu'), cfg,
+                                    'cpu', batch_size=8)
+    clips = make_clips(12, 16000, seconds=5, seed=13)
+    q6 = audio_io.qn_encode(clips, 6)
+    rows = [audio_io.v6_encode_clip(x) for x in clips]
+    want = cpu.predict_clips(q6)
+    assert gpu.predict_clips_resident(q6) == want
+    assert gpu.predict_rows_resident(rows) == want
+    assert cpu.predict_rows_resident(rows) == want

@@ -53,6 +53,7 @@ def _framewise(seed: int, n: int = 3, frames: int = 500) -> np.ndarray:
 def test_config_equals_sed_tpu():
     assert config.LABELS == jax_config.LABELS
     assert config.IDS == jax_config.IDS
+    assert config.SPEECH_LABELS == jax_config.SPEECH_LABELS
     for q in ('8k', '16k', '32k'):
         assert dataclasses.asdict(config.QUALITY[q]) == \
             dataclasses.asdict(jax_config.QUALITY[q])
@@ -262,6 +263,11 @@ for cli in ('cli.predict', 'cli.main_strong', 'cli.optimize_thresholds',
         assert e.code in (0, None), (cli, e.code)
     else:
         raise AssertionError(cli + ' --help did not exit')
+sys.argv = ['cli.predict', 'predict_asr', '--help']
+try:
+    runpy.run_module('sed_tpu_torch.cli.predict', run_name='__main__')
+except SystemExit as e:
+    assert e.code in (0, None), ('predict_asr', e.code)
 bad = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
 assert not bad, bad
 print('MODULES', len(names))
@@ -270,17 +276,17 @@ print('MODULES', len(names))
 
 def test_port_imports_nothing_of_the_jax_package():
     """Every module of sed_tpu_torch imports (the training modules
-    included), and the seven CLIs, the plot CLI and the multi-device dry
-    run answer --help, in a process where sed_tpu, jax, jaxlib, flax,
-    optax and orbax cannot be imported."""
+    included), and the seven CLIs, ``predict predict_asr``, the plot CLI
+    and the multi-device dry run answer --help, in a process where
+    sed_tpu, jax, jaxlib, flax, optax and orbax cannot be imported."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, '-c', _GUARD_SCRIPT], cwd=REPO,
                           env=env, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert 'usage:' in proc.stdout
+    assert 'usage:' in proc.stdout and '--asr_language' in proc.stdout
     n = int(proc.stdout.split('MODULES')[1].split()[0])
-    assert n >= 75, proc.stdout[-500:]
+    assert n >= 78, proc.stdout[-500:]
     for name in ('augment.functional', 'losses', 'train.state', 'train.step',
                  'train.checkpoint', 'train.prefetch', 'utils.statistics',
                  'utils.logging_utils', 'cli.main', 'models.encoders',
@@ -289,7 +295,8 @@ def test_port_imports_nothing_of_the_jax_package():
                  'cli.features', 'cli.download', 'cli.calculate_metrics',
                  'dsp.gammatone', 'dsp.plot', 'dsp.cqt', 'dsp.transforms',
                  'parallel.__init__', 'parallel.distributed', 'parallel.mesh',
-                 'parallel.dryrun'):
+                 'parallel.dryrun', 'native.adpcm_native', 'native._gxx',
+                 'utils.profiling'):
         assert os.path.isfile(os.path.join(
             REPO, 'sed_tpu_torch', *name.split('.')) + '.py'), name
     assert not os.path.exists(os.path.join(REPO, 'sed_tpu_torch',
@@ -717,3 +724,206 @@ def test_calculate_metrics_cli_equals_sed_tpu(tmp_path, capsys):
     assert repr(results[0]) == repr(results[1])
     assert printed[0] == printed[1] and 'SED micro ER' in printed[0]
     assert set(results[0]) == {'clipwise', 'sed'}
+
+
+# ---------------------------------------------------------------------------
+# the wire codecs, savers and file readers of data/audio_io.py, the native
+# ADPCM encoder and utils/profiling.py
+# ---------------------------------------------------------------------------
+
+def _v6_edge_inputs(samples: int = 16000) -> dict:
+    """``tests/test_v6.py``'s edge inputs at 1 s, and a corpus clip."""
+    t = np.arange(samples) / 16000
+    return {
+        'silence': np.zeros(samples, np.float32),
+        'dc': np.ones(samples, np.float32),
+        'tone440': (0.4 * np.sin(2 * np.pi * 440 * t)).astype(np.float32),
+        'tone7900': (0.9 * np.sin(2 * np.pi * 7900 * t)).astype(np.float32),
+        'noise': np.random.RandomState(3).uniform(-1, 1, samples).astype(
+            np.float32),
+        'int16': (np.random.RandomState(4).uniform(-1, 1, samples)
+                  * 32767).astype(np.int16),
+        'corpus': bench_corpus.make_clips(1, 16000, seconds=1, seed=6)[0],
+    }
+
+
+@pytest.mark.parametrize('name', sorted(_v6_edge_inputs()))
+def test_v6_codec_equals_sed_tpu(name):
+    from sed_tpu.data import audio_io as jax_audio_io
+    x = _v6_edge_inputs()[name]
+    buf = audio_io.v6_encode_clip(x)
+    assert np.array_equal(buf, jax_audio_io.v6_encode_clip(x))
+    assert len(buf) % 16 == 0 and len(buf) <= audio_io.v6_max_bytes(16000)
+    dec = audio_io.v6_decode_np(buf, 16000)
+    assert np.array_equal(dec.view(np.int32), jax_audio_io.v6_decode_np(
+        buf, 16000).view(np.int32))
+    q6 = audio_io.qn_decode_np(audio_io.qn_encode(x[None], 6), 16000, 6)
+    assert np.array_equal(dec.view(np.int32), q6[0].view(np.int32))
+    for nb in (1, 7, 125, 625):
+        assert audio_io.v6_header_bytes(nb) == \
+            jax_audio_io.v6_header_bytes(nb)
+    assert audio_io.v6_max_bytes(80000) == jax_audio_io.v6_max_bytes(80000)
+
+
+# saver name -> (port saver, reader, sed_tpu's names); every saver takes
+# (path, x, sr), every reader (path)
+_CONTAINERS = {
+    'wav_mulaw': ('save_wav_mulaw', 'fast_read_wav_mulaw', '.wav'),
+    'wav_adpcm': ('save_wav_adpcm', 'fast_read_wav_adpcm', '.wav'),
+    'wav_int16': ('save_wav', 'fast_read_wav_int16', '.wav'),
+    'q4': ('save_q4', 'read_q4', '.q4'),
+    **{f'q{n}': (f'save_q{n}', 'read_qn', f'.q{n}') for n in (2, 3, 5, 6)},
+    'v6': ('save_v6', 'read_v6', '.v6'),
+    **{f'adpcm{n}': (f'save_adpcm{n}', 'read_adpcm_n', f'.adpcm{n}')
+       for n in (2, 3)},
+}
+
+
+def _saver(module, name: str):
+    if name.startswith('save_q') and name != 'save_q4':
+        return lambda p, x, sr: module.save_qn(p, x, sr, int(name[-1]))
+    if name.startswith('save_adpcm') and name[-1].isdigit():
+        return lambda p, x, sr: module.save_adpcm_n(p, x, sr, int(name[-1]))
+    return getattr(module, name)
+
+
+def _same(a, b) -> bool:
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(map(_same, a, b))
+    if isinstance(a, np.ndarray):
+        return a.dtype == b.dtype and np.array_equal(a, b)
+    return a == b
+
+
+@pytest.mark.parametrize('fmt', sorted(_CONTAINERS))
+def test_savers_and_readers_equal_sed_tpu(tmp_path, fmt):
+    """Each saver writes sed_tpu's bytes; each reader gives sed_tpu's
+    rows, rate and length from it; ``wire_reader_for`` sniffs the file to
+    the same row; float32 and int16 input."""
+    from sed_tpu.data import audio_io as jax_audio_io
+    save, read, ext = _CONTAINERS[fmt]
+    x = bench_corpus.make_clips(1, 16000, seconds=1, seed=8)[0]
+    for inp in (x, (x * 32767).astype(np.int16)):
+        got, want = str(tmp_path / f'p{ext}'), str(tmp_path / f'j{ext}')
+        _saver(audio_io, save)(got, inp, 16000)
+        _saver(jax_audio_io, save)(want, inp, 16000)
+        assert open(got, 'rb').read() == open(want, 'rb').read()
+        assert _same(getattr(audio_io, read)(got),
+                     getattr(jax_audio_io, read)(got))
+        if fmt in ('wav_mulaw', 'wav_adpcm', 'wav_int16', 'q4', 'q5', 'q6'):
+            row = audio_io.wire_reader_for(got)(got)
+            assert _same(row, jax_audio_io.wire_reader_for(got)(got))
+            assert audio_io._wav_format_tag(got) == \
+                jax_audio_io._wav_format_tag(got)
+    if fmt == 'v6':
+        assert audio_io.v6_payload_bytes(got) == \
+            jax_audio_io.v6_payload_bytes(got) == len(audio_io.read_v6(
+                got)[0])
+
+
+def test_wav_readers_and_helpers_equal_sed_tpu(tmp_path):
+    """``load_wav_int16`` / ``fast_read_wav_int16`` on a stereo and a
+    float wav (the non-canonical paths), a mu-law read of a PCM file (it
+    encodes), ``get_duration``, ``trim_silent`` and the q4 aliases."""
+    from scipy.io import wavfile
+    from sed_tpu.data import audio_io as jax_audio_io
+    x = bench_corpus.make_clips(2, 16000, seconds=1, seed=9)
+    stereo = str(tmp_path / 'stereo.wav')
+    wavfile.write(stereo, 16000, (x.T * 32767).astype(np.int16))
+    flt = str(tmp_path / 'float.wav')
+    wavfile.write(flt, 8000, x[0])
+    for path in (stereo, flt):
+        for fn in ('load_wav_int16', 'fast_read_wav_int16',
+                   'fast_read_wav_mulaw', 'get_duration'):
+            assert _same(getattr(audio_io, fn)(path),
+                         getattr(jax_audio_io, fn)(path)), (path, fn)
+        assert _same(audio_io.wire_reader_for(path)(path),
+                     jax_audio_io.wire_reader_for(path)(path))
+    quiet = x[0].copy()
+    quiet[4000:9000] *= 1e-3
+    for args in ((quiet, 16000), (quiet, 16000, 30.0, 1024, 256),
+                 (quiet[:1000], 16000), (np.zeros(5000, np.float32), 16000)):
+        assert _same(audio_io.trim_silent(*args),
+                     jax_audio_io.trim_silent(*args))
+    other = tmp_path / 'notes.txt'
+    other.write_text('not a RIFF file')
+    assert audio_io._wav_format_tag(str(other)) == \
+        jax_audio_io._wav_format_tag(str(other)) == 0
+    assert audio_io.q4_bytes(80000) == jax_audio_io.q4_bytes(80000)
+    enc = audio_io.q4_encode(x)
+    assert np.array_equal(enc, jax_audio_io.q4_encode(x))
+    assert np.array_equal(audio_io.q4_decode_np(enc, 16000),
+                          jax_audio_io.q4_decode_np(enc, 16000))
+
+
+@pytest.mark.parametrize('bits', [4, 3, 2])
+def test_native_adpcm_encoder_equals_numpy_and_sed_tpu(bits):
+    """The port's native encoder (built by g++ into build/) is bit-exact
+    to its numpy encoder and to sed_tpu's ``adpcm_encode`` /
+    ``adpcm_n_encode``, on float32 and int16 rows of a length no block
+    divides."""
+    from sed_tpu.data import audio_io as jax_audio_io
+    from sed_tpu.native import adpcm_native as jax_adpcm_native
+    from sed_tpu_torch.native import adpcm_native
+    assert adpcm_native.native_available() == \
+        jax_adpcm_native.native_available()
+    if not adpcm_native.native_available():
+        pytest.skip('no g++ on this host')
+    assert adpcm_native._lib_path().startswith(
+        os.path.join(REPO, 'build', 'sed_tpu_torch'))
+    x = np.concatenate([bench_corpus.make_clips(2, 16000, seconds=1,
+                                                seed=10),
+                        np.random.RandomState(1).uniform(-1, 1, (1, 16000))
+                        .astype(np.float32)])[:, :15999]
+    for inp in (x, (x * 32767).astype(np.int16)):
+        if bits == 4:
+            got = audio_io.adpcm_encode(inp)
+            pcm = inp if inp.dtype == np.int16 else np.clip(np.round(
+                inp * 32767.0), -32768, 32767).astype(np.int16)
+            assert np.array_equal(adpcm_native.encode(pcm, 256), got)
+            want = (audio_io.adpcm_encode_np(inp),
+                    jax_audio_io.adpcm_encode(inp))
+        else:
+            got = audio_io.adpcm_n_encode(inp, bits)
+            want = (audio_io.adpcm_n_encode_np(inp, bits),
+                    jax_audio_io.adpcm_n_encode(inp, bits))
+        for w in want:
+            assert np.array_equal(got, w)
+
+
+def test_training_wire_runs_the_native_adpcm_encoder(monkeypatch):
+    """The port's ``AudiosetDataset`` encodes ``adpcm4`` batches through
+    ``audio_io.adpcm_encode`` (the native encoder where it builds), as
+    sed_tpu's does; the bytes are sed_tpu's."""
+    from sed_tpu.data.dataset import AudiosetDataset as JaxDataset
+    from sed_tpu_torch.data.dataset import AudiosetDataset
+    from sed_tpu_torch.native import adpcm_native
+    calls = []
+    native = adpcm_native.encode
+    monkeypatch.setattr(adpcm_native, 'encode',
+                        lambda *a: calls.append(1) or native(*a))
+    pcm = (np.random.RandomState(2).uniform(-0.5, 0.5, (3, 4000))
+           * 32767).astype(np.int16)
+    got = AudiosetDataset(wire='adpcm4')._encode_wire(pcm)
+    assert np.array_equal(got, JaxDataset(wire='adpcm4')._encode_wire(pcm))
+    assert len(calls) == int(adpcm_native.native_available())
+
+
+def test_step_timer_equals_sed_tpu_under_a_fake_clock(monkeypatch):
+    import time
+    from sed_tpu.utils.profiling import StepTimer as JaxStepTimer
+    from sed_tpu_torch.utils.profiling import StepTimer
+    ticks = np.cumsum(np.random.RandomState(5).uniform(0.01, 0.5, 20))
+    now = [0.0]
+    monkeypatch.setattr(time, 'time', lambda: now[0])
+    timers = (StepTimer(window=7), JaxStepTimer(window=7))
+    for i, tick in enumerate(ticks):
+        now[0] = float(tick)
+        for t in timers:
+            t.step(examples=3 + i % 4)
+        got, want = timers
+        assert got.steps_per_sec == want.steps_per_sec
+        assert got.examples_per_sec == want.examples_per_sec
+        assert (got.steps_per_sec > 0) == (i > 0)
+    # a window of 7 steps: 7 / (their summed intervals)
+    assert got.steps_per_sec == 7 / sum(np.diff(ticks)[-7:].tolist())

@@ -1,6 +1,7 @@
 """The uint8 wires of sed_tpu_torch (``ops/wire.py``) against ``sed_tpu``:
 the device decode against ``sed_tpu.ops.wire.dequant_wire`` (JAX on the
-CPU) and against ``sed_tpu``'s numpy decoders, and the engine's
+CPU) and against ``sed_tpu``'s numpy decoders, the v6 pool decode
+against ``sed_tpu.ops.wire.dequant_v6_pool``, and the engine's
 ``predict_clips`` on each wire against ``sed_tpu``'s engine on the same
 buffers.
 
@@ -120,6 +121,88 @@ def test_numpy_codecs_equal_sed_tpu(name):
         assert np.array_equal(buf, ENCODERS[name][0](inp))
         assert np.array_equal(_bits(PORT_CODECS[name][1](buf, 64640)),
                               _bits(ENCODERS[name][1](buf, 64640)))
+
+
+def _v6_pool(rows, tail_words: int = 2048):
+    """sed_tpu's pool layout: payloads back to back, a zero tail, the
+    word offsets, and one padding row pointing into the tail."""
+    sizes = [r.nbytes for r in rows]
+    pool = np.concatenate(list(rows) + [np.zeros(4 * tail_words, np.uint8)])
+    offsets = np.concatenate([[0], np.cumsum(sizes)]) // 4
+    return pool.view(np.int32), offsets.astype(np.int32)
+
+
+def _v6_signals(samples: int) -> np.ndarray:
+    """``tests/test_v6.py``'s edge inputs (silence, DC, 440 Hz and 7.9 kHz
+    tones, uniform noise) and a bench-corpus clip."""
+    t = np.arange(samples) / 16000
+    return np.stack([
+        np.zeros(samples), np.ones(samples),
+        0.4 * np.sin(2 * np.pi * 440 * t), 0.9 * np.sin(2 * np.pi * 7900 * t),
+        np.random.RandomState(3).uniform(-1, 1, samples),
+        make_clips(1, 16000, seconds=5, seed=3)[0][:samples]]
+    ).astype(np.float32)
+
+
+@pytest.mark.parametrize('samples', [80000, 16000])
+def test_dequant_v6_pool_bitwise_equal_to_sed_tpu(samples):
+    """The port's pool decode on the CPU (the predictor's plain version)
+    against sed_tpu's JAX ``dequant_v6_pool`` and ``v6_decode_np`` (and
+    so q6's decode), with an int16 clip and a padding row that decodes
+    to silence."""
+    x = _v6_signals(samples)
+    pcm = (np.random.RandomState(4).uniform(-1, 1, samples)
+           * 32767).astype(np.int16)
+    rows = [audio_io.v6_encode_clip(c) for c in x] + \
+        [audio_io.v6_encode_clip(pcm)]
+    pool, offsets = _v6_pool(rows)
+    got = wire.dequant_v6_pool(torch.from_numpy(pool),
+                               torch.from_numpy(offsets), samples)
+    assert got.dtype == torch.float32 and got.shape == (len(rows) + 1,
+                                                        samples)
+    got = got.numpy()
+    if samples == 80000:            # one JAX compile is enough
+        want = jax_wire.dequant_v6_pool(jnp.asarray(pool),
+                                        jnp.asarray(offsets), samples)
+        assert np.array_equal(_bits(got), _bits(want))
+    for i, row in enumerate(rows):
+        assert np.array_equal(_bits(got[i]), _bits(
+            jax_audio_io.v6_decode_np(row, samples)))
+    q6 = jax_audio_io.qn_decode_np(jax_audio_io.qn_encode(x, 6), samples, 6)
+    assert np.array_equal(_bits(got[:len(x)]), _bits(q6))
+    assert not _bits(got[-1]).any()          # the padding row: +0.0
+
+
+def test_v6_predictor_plain_keeps_int32_arithmetic():
+    """The recurrence's plain version on hand-made lanes of every order,
+    with negative products (the arithmetic right shift) and wrapping
+    int32 sums, against a step-by-step numpy int32 evaluation."""
+    rng = np.random.RandomState(0)
+    lanes = 64
+    r = rng.randint(-32, 32, (lanes, 128)).astype(np.int32)
+    order = np.arange(lanes, dtype=np.int32) % 4
+    coef = rng.randint(-128, 128, lanes).astype(np.int32)
+    init1 = rng.randint(-128, 128, lanes).astype(np.int32)
+    init2 = rng.randint(-128, 128, lanes).astype(np.int32)
+    scale = rng.uniform(0.001, 0.03, lanes).astype(np.float32)
+    got = wire._v6_predict(*(torch.from_numpy(a) for a in (
+        r, order, coef, init1, init2, scale))).numpy()
+    def recurrence(dtype):
+        qp, qp2 = init1.astype(dtype), init2.astype(dtype)
+        q = np.empty(r.shape, dtype)
+        for t in range(128):
+            pred = np.select([order == 1, order == 2, order == 3],
+                             [qp, 2 * qp - qp2,
+                              ((coef * qp + 16) >> 5) - qp2], 0)
+            q[:, t] = r[:, t] + pred
+            qp2, qp = qp, q[:, t]
+        return q
+
+    q = recurrence(np.int32)
+    assert np.abs(recurrence(np.int64)).max() > 2 ** 31  # order 3 wraps
+    assert np.array_equal(_bits(got), _bits(q.astype(np.float32)
+                                            * scale[:, None]))
+    assert wire._v6_predict.launches == 0           # the CPU runs plain
 
 
 @pytest.mark.parametrize('samples', [80000, 96000, 160000])
