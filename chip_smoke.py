@@ -9,9 +9,9 @@ Cnn_9layers_Gru_FrameAtt at 16 kHz on the trained bench checkpoint, and
 checks it against the same engine on the CPU.  Phases:
 
 1. card, power limit, torch / CUDA versions, TF32 flags (both turned off);
-2. build of the CUDA kernels from ``sed_tpu_torch/csrc`` (log-mel and the
-   v6 predictor; one nvcc a source, started together, sm_90a), the time,
-   and ptxas's registers and spills (no spills);
+2. build of the CUDA kernels from ``sed_tpu_torch/csrc`` (log-mel, the v6
+   pool decode and the ADPCM decode; one nvcc a source, started together,
+   sm_90a), the time, and ptxas's registers and spills (no spills);
 3. kernel against its plain PyTorch version at 8, 16 and 32 kHz, with a
    frame count no tile divides, near-silent, digitally silent and
    full-scale clips, and with a mel filter on the Nyquist bin (rtol 1e-4,
@@ -44,11 +44,16 @@ checks it against the same engine on the CPU.  Phases:
 10. the uint8 wires on the card: the 64 bench clips plus a full-scale
     square wave and digital silence, encoded as q2-q6, mu-law and
     adpcm4/3/2 by the port's numpy encoders, decoded on the GPU by
-    ``ops.wire.dequant_wire`` bit-exact to the numpy decoders;
-    ``predict_clips`` on the 64 clips as adpcm4 and q6, events and XML
-    identical to the CPU engine; decode device ms per batch of 32 (CUDA
-    events), adpcm4 ``predict_clips`` clips/s over 512 clips, a
-    profiler breakdown of one adpcm4 batch and of one decode alone;
+    ``ops.wire.dequant_wire`` bit-exact to the numpy decoders; the ADPCM
+    kernel (``csrc/adpcm_decode.cu``) bit-exact to its plain version on
+    the card for adpcm4/3/2 on the encodings, on 32 rows of random bytes
+    and on 256 rows of 10 s, and timed against plain and its bound at 32
+    x 80000 and 256 x 160000; ``predict_clips`` on the 64 clips as adpcm4
+    (the ADPCM kernel's count must rise) and q6, events and XML identical
+    to the CPU engine; decode device ms per batch of 32 (CUDA events),
+    adpcm4 and int16 ``predict_clips`` clips/s over 512 clips in turns, a
+    profiler breakdown of one adpcm4 batch, and the launches of one
+    decode alone (the nodes of a CUDA graph that captures it; at most 2);
 11. ``predict_clips_stream`` on 512 int16 clips in chunks of 32:
     identical to ``predict_clips``, clips/s; then on 512 wav files of 5 s
     (16 and 44.1 kHz, resampled on the host) read chunk by chunk in the
@@ -151,11 +156,13 @@ checks it against the same engine on the CPU.  Phases:
     the int16 directory: XML files identical; clips/s over 512 clips for
     int16, adpcm4 and q6 files (reads included), v6 rows and
     ``predict_clips`` on int16, in turns, with one pass's telemetry per
-    wire; the v6 predictor kernel (``csrc/v6_predict.cu``) on one 32-clip
-    pool with a padding row: bit-exact to its plain version and to
-    ``v6_decode_np``, the padding row silent, kernel and plain timed
-    (CUDA events), the whole decode timed and its launches counted under
-    the profiler; which ADPCM encoder ran (native or numpy).
+    wire; the v6 decode kernel (``csrc/v6_decode.cu``, the whole pool
+    decode) on one 32-clip pool with a padding row: bit-exact to its
+    plain version and to ``v6_decode_np``, the padding row silent, and to
+    its plain version on a random-word pool; kernel and plain timed (CUDA
+    events), the wrapper's host time, the decode's launches counted as
+    the nodes of a CUDA graph that captures it (at most 2); which ADPCM
+    encoder ran (native or numpy).
 
 ``python3 chip_smoke.py --families-only`` runs phases 1, 2 and 14 alone,
 ``--gamma-only`` phases 1, 2 and 15, ``--bf16-only`` phases 1, 2 and 16,
@@ -165,8 +172,9 @@ result line (for work on that phase).
 
 Phases 4, 7, 8, 9, 10, 11, 12, 13, 14, 16, 17 and 18 drive the main
 paths: each sets the kernel's launch count to 0 just before and reads it
-just after, and fails if the kernel was not launched; phase 18 does the
-same for the v6 predictor kernel on the v6 paths.  Phase 15 drives the
+just after, and fails if the kernel was not launched; phases 10 and 18
+do the same for the ADPCM kernel on the adpcm4 paths, and phase 18 for
+the v6 decode kernel on the v6 paths.  Phase 15 drives the
 gamma path the same way and fails if log-mel was launched there: that
 path has no kernel, its model takes packed features.  The script imports
 nothing of JAX and nothing of the JAX package ``sed_tpu``, and checks so
@@ -190,7 +198,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-KERNELS = ('logmel', 'v6_predict')      # sed_tpu_torch/csrc/<name>.cu
+KERNELS = ('logmel', 'v6_decode', 'adpcm_decode')  # csrc/<name>.cu
 TOL = dict(rtol=1e-4, atol=1e-3)        # dB; tests/test_ops.py's tolerance
 FRAMEWISE_ATOL = 1e-4
 
@@ -420,27 +428,105 @@ def profile_batch(engine, pcm, tag: str) -> None:
               f'x{e.count:<4d} {e.key[:90]}')
 
 
-def decode_profile(dequant_wire, batch, tag: str) -> None:
-    """Device time of one wire decode of ``batch`` under the profiler:
-    the sum of its kernels, their launches and the wall around it."""
+def graph_launches(fn) -> int:
+    """Device operations (kernels, copies, memsets) that one ``fn()``
+    enqueues: the nodes of a CUDA graph that captures it, read with the
+    driver's ``cuGraphGetNodes``.  Exact where the profiler is not: a
+    trace can drop every event of a call that makes one launch."""
+    import ctypes
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    dequant_wire(batch, 80000)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        dequant_wire(batch, 80000)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in rows)
-    print(f'[{tag}] profile of one decode of {tuple(batch.shape)} uint8: '
-          f'wall {wall_us:.0f} us, device kernels {busy_us:.0f} us in '
-          f'{sum(e.count for e in rows)} launches')
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    n = ctypes.c_size_t(0)
+    rc = ctypes.CDLL('libcuda.so.1').cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(n))
+    assert rc == 0, f'cuGraphGetNodes failed ({rc})'
+    graph.reset()
+    return n.value
 
+
+def decode_profile(dequant_wire, batch, tag: str) -> int:
+    """Launches of one wire decode of ``batch`` (``graph_launches``) and
+    its time between CUDA events (median of 20, the host's launch time
+    included).  Returns the launches."""
+    launches = graph_launches(lambda: dequant_wire(batch, 80000))
+    ms = cuda_ms(lambda: dequant_wire(batch, 80000))
+    print(f'[{tag}] one decode of {tuple(batch.shape)} {batch.dtype}: '
+          f'{launches} device launches (nodes of a CUDA graph capturing '
+          f'it), {ms!r} ms between CUDA events')
+    return launches
+
+
+def adpcm_bound_ms(rows: int, width: int, samples: int, bits: int) -> tuple:
+    """The least time an H100 SXM could take for the ADPCM decode of a
+    (rows, width) uint8 wire to (rows, samples) float32: the larger of
+    its bytes (the wire read once, the output written once, the 89-entry
+    step table and the index table) over 3.35 TB/s and its operations
+    over the 67 T/s of the CUDA cores, counted per sample: the step
+    lookup, the diff's shift and bits - 1 conditional adds (2 each), the
+    sign, the clamped add of the predictor (3), the index lookup and its
+    clamped add (4) and the scaling (2).  Returns (ms, 'bytes' or
+    'operations', ops ms, bytes ms)."""
+    nbytes = rows * width + 4 * rows * samples + 4 * (89 + (1 << bits))
+    ops = rows * samples * (2 * (bits - 1) + 12)
+    bytes_ms = nbytes / 3.35e12 * 1e3
+    ops_ms = ops / 67e12 * 1e3
+    return max(ops_ms, bytes_ms), ('operations' if ops_ms > bytes_ms
+                                   else 'bytes'), ops_ms, bytes_ms
+
+
+def adpcm_kernel_checks(card: str, dev, signals, wires) -> tuple:
+    """Phase 10's ADPCM kernel checks: bitwise against its plain version
+    on the card for adpcm4/3/2 on the encoded signals and on 32 rows of
+    seeded random bytes of each wire width, then kernel (queued behind a
+    spin kernel), plain (CUDA events) and bound at 32 x 80000 and at the
+    training shape 256 x 160000.  Returns the largest |kernel - plain|
+    and {(bits, rows): (ms, plain ms, bound)}."""
+    import numpy as np
+    import torch
+    from sed_tpu_torch.data import audio_io
+    from sed_tpu_torch.ops import wire as wire_ops
+    rng = np.random.RandomState(10)
+    err, times = 0.0, {}
+    long_x = signals[:64].reshape(32, 160000)            # 10 s clips
+    for bits in (4, 3, 2):
+        name = f'adpcm{bits}'
+        enc10 = (audio_io.adpcm_encode_np(long_x) if bits == 4
+                 else audio_io.adpcm_n_encode_np(long_x, bits))
+        cases = {
+            'encoded signals': (wires[name], 80000),
+            'random bytes': (rng.randint(0, 256, (32, wires[name].shape[1]))
+                             .astype(np.uint8), 80000),
+            '10 s encoded x 8': (np.concatenate([enc10] * 8), 160000)}
+        for tag, (buf, samples) in cases.items():
+            wav = torch.from_numpy(buf).to(dev)
+            got = wire_ops._adpcm_decode(wav, samples, bits)
+            want = wire_ops._adpcm_decode_plain(wav, samples, bits)
+            assert torch.equal(got.view(torch.int32),
+                               want.view(torch.int32)), \
+                f'{name} {tag}: the ADPCM kernel differs from its plain version'
+            err = max(err, (got - want).abs().max().item())
+        print(f'[10] {name} kernel bit-exact to its plain version on the '
+              f'card: ' + ', '.join(f'{tag} {cases[tag][0].shape}'
+                                    for tag in cases))
+        for rows, (buf, samples) in ((32, (wires[name][:32], 80000)),
+                                     (256, cases['10 s encoded x 8'])):
+            wav = torch.from_numpy(buf).to(dev)
+            ms = queued_ms(lambda: wire_ops._adpcm_decode(wav, samples, bits))
+            plain_ms = cuda_ms(lambda: wire_ops._adpcm_decode_plain(
+                wav, samples, bits), runs=5)
+            bound = adpcm_bound_ms(rows, buf.shape[1], samples, bits)
+            times[bits, rows] = (ms, plain_ms, bound)
+            print(f'[10] {name} decode of {rows} x {samples} on {card}: '
+                  f'kernel {ms!r} ms (20 launches queued behind a spin '
+                  f'kernel, CUDA events), plain {plain_ms!r} ms (CUDA events,'
+                  f' median of 5); bound {bound[0]!r} ms by {bound[1]} '
+                  f'(bytes {bound[3]!r} ms, operations {bound[2]!r} ms); '
+                  f'kernel at {bound[0] / ms!r} of it')
+    return err, times
 
 
 TRAIN_BS = 32                      # configs[4]: --batch_size 32
@@ -605,7 +691,9 @@ def profile_by_group(fn, groups, tag: str, what: str, top: int = 15) -> dict:
     ``fn`` runs twice inside one trace and only the second call is
     reported (the events that start after its marker): a profile taken
     after earlier ones in the same process lost the first kernels of its
-    trace (log-mel, ``bn0``, the first convolution)."""
+    trace (log-mel, ``bn0``, the first convolution), and can lose every
+    launch of a call that makes only one or two (``graph_launches``
+    counts those)."""
     import collections
     import torch
     from torch.autograd import DeviceType
@@ -1699,25 +1787,38 @@ def parallel_phase(card: str, dev, cfg, pcm, gpu, adpcm) -> int:
     return launches
 
 
-V6_LANE_BYTES = 4 * (128 + 5 + 128)   # residuals, 5 parameters, samples
+def v6_read_bytes(payloads, samples: int) -> int:
+    """The pool bytes a v6 decode of ``payloads`` must read: each clip's
+    header and the data words its sub-group widths name (the payload
+    without its pad to 16 bytes), and its int32 offset."""
+    import numpy as np
+    from sed_tpu_torch.data import audio_io
+    nb = samples // audio_io.Q4_BLOCK
+    hb = audio_io.v6_header_bytes(nb)
+    total = 0
+    for p in payloads:
+        mode = np.asarray(p[2 * nb:4 * nb]).view(np.uint16).astype(np.int64)
+        words = sum(int(((mode >> (2 + 3 * g)) & 7).sum()) for g in range(4))
+        total += hb + 4 * words + 4
+    return total
 
 
-def v6_bound_ms(order) -> tuple:
-    """The least time an H100 SXM could take for the v6 predictor
-    recurrence on these lanes: the larger of its bytes (each lane's 128
-    int32 residuals and 5 parameter words read once, its 128 float32
-    samples written once) over 3.35 TB/s and its operations over the 67
-    TFLOP/s of the CUDA cores (the table's rate for 32-bit types; int32
-    issues at half of it, still far below the bytes), counted per sample
-    for each lane's order: the add of the residual, the int -> float
-    conversion and the scale multiply, plus 0 / 0 / 2 / 4 operations of
-    the order 0 / 1 / 2 / 3 prediction.  Returns (ms, 'bytes' or
-    'operations', ops ms, bytes ms)."""
+def v6_bound_ms(read_bytes: int, order) -> tuple:
+    """The least time an H100 SXM could take for the whole v6 pool
+    decode: the larger of its bytes (``v6_read_bytes``, read once, and
+    the float32 output, 128 samples a lane, written once) over 3.35 TB/s
+    and its operations over the 67 TFLOP/s of the CUDA cores (the
+    table's rate for 32-bit types; int32 issues at half of it, still far
+    below the bytes), counted per sample for each lane's order: the
+    unpack's shift, mask and offset (3), the add of the residual, the int
+    -> float conversion and the scale multiply (3), plus 0 / 0 / 2 / 4
+    operations of the order 0 / 1 / 2 / 3 prediction.  Returns (ms,
+    'bytes' or 'operations', ops ms, bytes ms)."""
     import numpy as np
     order = np.asarray(order)
-    per_order = np.array([3, 3, 5, 7])
+    per_order = np.array([6, 6, 8, 10])
     ops = 128 * per_order[order].sum()
-    bytes_ms = order.size * V6_LANE_BYTES / 3.35e12 * 1e3
+    bytes_ms = (read_bytes + 4 * 128 * order.size) / 3.35e12 * 1e3
     ops_ms = float(ops) / 67e12 * 1e3
     return max(ops_ms, bytes_ms), ('operations' if ops_ms > bytes_ms
                                    else 'bytes'), ops_ms, bytes_ms
@@ -1727,9 +1828,10 @@ RESIDENT_FORMATS = ('int16', 'mulaw', 'adpcm4', 'q4', 'q5', 'q6')
 
 
 def resident_phase(card: str, dev, cfg, clips, gpu, cpu) -> tuple:
-    """Phase 18; returns the log-mel launches of its main-path runs and
-    the v6 predictor kernel's entry of the ``kernels`` line (without its
-    name, route, source and replaces)."""
+    """Phase 18; returns the log-mel launches of its main-path runs, the
+    ADPCM kernel's launches on the adpcm4 files and the v6 decode
+    kernel's entry of the ``kernels`` line (without its name, route,
+    source and replaces)."""
     import numpy as np
     import torch
     from sed_tpu_torch.cli import predict as predict_cli
@@ -1779,11 +1881,19 @@ def resident_phase(card: str, dev, cfg, clips, gpu, cpu) -> tuple:
 
         # (a) the fixed-width files through wire_reader_for
         results = {}
+        adpcm_launch = 0
         for fmt in RESIDENT_FORMATS:
             reader = audio_io.wire_reader_for(paths[fmt][0])
             rows = np.stack([reader(p) for p in paths[fmt]])
+            wire_ops._adpcm_decode.launches = 0
             got, launched = counted(lambda: gpu.predict_files_resident(
                 paths[fmt], reader, names=names), f'{fmt} files')
+            if fmt == 'adpcm4':
+                adpcm_launch = wire_ops._adpcm_decode.launches
+                assert adpcm_launch > 0, \
+                    'the adpcm4 files did not launch the ADPCM kernel'
+                print(f'[18] adpcm4 files: ADPCM kernel launches '
+                      f'{adpcm_launch}')
             assert got == gpu.predict_clips(rows, names), \
                 f'{fmt}: predict_files_resident differs from predict_clips'
             assert [r[:8] for r in got] == list(cpu.predict_clips(
@@ -1816,15 +1926,15 @@ def resident_phase(card: str, dev, cfg, clips, gpu, cpu) -> tuple:
                      names=names)),
                 ('predict_rows_resident',
                  lambda: gpu.predict_rows_resident(payloads, names))):
-            wire_ops._v6_predict.launches = 0
+            wire_ops.dequant_v6_pool.launches = 0
             got, launched = counted(fn, entry)
-            assert wire_ops._v6_predict.launches > 0, \
-                f'{entry} did not launch the v6 predictor kernel'
-            v6_launch += wire_ops._v6_predict.launches
+            assert wire_ops.dequant_v6_pool.launches > 0, \
+                f'{entry} did not launch the v6 decode kernel'
+            v6_launch += wire_ops.dequant_v6_pool.launches
             assert got == results['q6'], f'{entry}: v6 differs from q6'
             print(f'[18] {entry}: events and XML identical to the q6 '
                   f'files\'; log-mel launches {launched}, v6 kernel '
-                  f'launches {wire_ops._v6_predict.launches}')
+                  f'launches {wire_ops.dequant_v6_pool.launches}')
 
         # (c) the CLI
         ws = os.path.join(tmp, 'ws')
@@ -1876,56 +1986,74 @@ def resident_phase(card: str, dev, cfg, clips, gpu, cpu) -> tuple:
             print(f'[18] telemetry of one 512-clip {fmt} pass: {tel}')
 
     # the pool decode of one 32-clip batch: kernel against plain and numpy
+    samples = gpu.window_samples
     rows32 = payloads[:32]
     pool = np.concatenate(rows32 + [np.zeros(8192, np.uint8)]).view(np.int32)
     offs = (np.concatenate([[0], np.cumsum(sizes[:32])]) // 4).astype(
         np.int32)                          # 32 clips and a padding row
     pool_d = torch.from_numpy(pool).to(dev)
     offs_d = torch.from_numpy(offs).to(dev)
-    dec = wire_ops.dequant_v6_pool(pool_d, offs_d, gpu.window_samples)
-    fields = wire_ops.v6_fields(pool_d, offs_d, gpu.window_samples)
-    plain = wire_ops._v6_predict_plain(*fields).reshape(dec.shape)
+    dec = wire_ops.dequant_v6_pool(pool_d, offs_d, samples)
+    plain = wire_ops._v6_decode_plain(pool_d, offs_d, samples)
     err = (dec - plain).abs().max().item()
     assert torch.equal(dec.view(torch.int32), plain.view(torch.int32)), \
         'the v6 kernel differs from its plain version'
     dec = dec.cpu().numpy()
     for i, row in enumerate(rows32):
-        want = audio_io.v6_decode_np(row, gpu.window_samples)
+        want = audio_io.v6_decode_np(row, samples)
         assert np.array_equal(dec[i].view(np.int32), want.view(np.int32)), \
             f'v6 clip {i} differs from v6_decode_np'
         err = max(err, float(np.abs(dec[i] - want).max()))
     assert not dec[-1].view(np.int32).any(), 'the padding row is not silent'
-    fields = wire_ops.v6_fields(pool_d, offs_d[:32], gpu.window_samples)
-
-    def kernel():
-        return wire_ops._v6_predict(*fields)
+    # a seeded random-word pool: every order and width (7 included), NaN
+    # and inf scales, order 3 wrapping, offsets into the tail and past P
+    rng = np.random.RandomState(18)
+    words = rng.randint(-2 ** 31, 2 ** 31, 1 << 20, dtype=np.int64)
+    roffs = np.concatenate([rng.randint(0, 1 << 20, 27), [
+        (1 << 20) - 3, (1 << 20) - 1, (1 << 20) + 5000, -11, 2 ** 31 - 7]])
+    words_d = torch.from_numpy(words.astype(np.int32)).to(dev)
+    roffs_d = torch.from_numpy(roffs.astype(np.int32)).to(dev)
+    got = wire_ops.dequant_v6_pool(words_d, roffs_d, samples)
+    want = wire_ops._v6_decode_plain(words_d, roffs_d, samples)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+        'the v6 kernel differs from its plain version on random words'
+    print(f'[18] v6 decode kernel bit-exact to its plain version on the '
+          f'card: the 32 bench clips and a padding row (and to '
+          f'v6_decode_np, the padding row silent), and a random-word pool of '
+          f'{len(words)} words at {len(roffs)} offsets '
+          f'({int(torch.isnan(want).sum())} NaN samples)')
 
     def decode():
-        return wire_ops.dequant_v6_pool(pool_d, offs_d[:32],
-                                        gpu.window_samples)
+        return wire_ops.dequant_v6_pool(pool_d, offs_d[:32], samples)
 
-    ms = queued_ms(kernel)
-    plain_ms = cuda_ms(lambda: wire_ops._v6_predict_plain(*fields), runs=5)
-    bound = v6_bound_ms(fields[1].cpu().numpy())
-    print(f'[18] v6 predictor on 32 x {gpu.window_samples} ({len(fields[1])} '
-          f'lanes) on {card}: kernel {ms!r} ms (20 launches queued behind a '
-          f'spin kernel, CUDA events; one launch alone between events '
-          f'{cuda_ms(kernel)!r} ms, the wrapper\'s host time showing), plain '
-          f'{plain_ms!r} ms (CUDA events, median of 5: its 1900 launches); '
-          f'bound {bound[0]!r} ms by {bound[1]} (bytes {bound[3]!r} ms, '
-          f'operations {bound[2]!r} ms); kernel at {bound[0] / ms!r} of it; '
-          f'bit-exact to plain and to v6_decode_np, padding row silent')
-    print(f'[18] whole v6 pool decode of 32 clips: {queued_ms(decode)!r} ms '
-          f'queued, {cuda_ms(decode)!r} ms one call between events (median '
-          f'of 20)')
-    profile_by_group(lambda: wire_ops.dequant_v6_pool(
-        pool_d, offs_d[:32], gpu.window_samples), (), '18',
-        'one v6 pool decode of 32 clips (with the kernel)', top=6)
-    profile_by_group(lambda: wire_ops._v6_predict_plain(*fields), (), '18',
-                     'the plain recurrence alone (torch ops)', top=4)
-    return launches, {'launches': v6_launch, 'max_abs_err': err, 'ms': ms,
-                      'plain_ms': plain_ms, 'bound_ms': bound[0],
-                      'bound_by': bound[1], 'library_ms': None}
+    ms = queued_ms(decode)
+    plain_ms = cuda_ms(lambda: wire_ops._v6_decode_plain(
+        pool_d, offs_d[:32], samples), runs=5)
+    order = wire_ops.v6_fields(pool_d, offs_d[:32], samples)[1].cpu().numpy()
+    bound = v6_bound_ms(v6_read_bytes(rows32, samples), order)
+    decode()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        decode()
+    host_us = (time.perf_counter() - t0) / 100 * 1e6
+    torch.cuda.synchronize()
+    print(f'[18] v6 pool decode of 32 x {samples} ({len(order)} lanes) on '
+          f'{card}: kernel {ms!r} ms (20 launches queued behind a spin '
+          f'kernel, CUDA events; one call alone between events '
+          f'{cuda_ms(decode)!r} ms), the wrapper\'s host time {host_us!r} '
+          f'us a call (100 calls, host clock); plain {plain_ms!r} ms (CUDA '
+          f'events, median of 5); bound {bound[0]!r} ms by {bound[1]} (bytes '
+          f'{bound[3]!r} ms, operations {bound[2]!r} ms); kernel at '
+          f'{bound[0] / ms!r} of it')
+    n = graph_launches(decode)
+    print(f'[18] one v6 pool decode of 32 clips: {n} device launches (nodes '
+          f'of a CUDA graph capturing it)')
+    assert 1 <= n <= 2, f'one v6 pool decode took {n} launches'
+    return launches, adpcm_launch, {
+        'launches': v6_launch, 'max_abs_err': err, 'ms': ms,
+        'plain_ms': plain_ms, 'bound_ms': bound[0], 'bound_by': bound[1],
+        'library_ms': None}
 
 
 def main() -> None:
@@ -2271,14 +2399,22 @@ def main() -> None:
         print(f'[10] {name}: {buf.shape[1]} bytes a clip, GPU decode of '
               f'{len(buf)} rows bit-exact to the numpy decoder; decode of '
               f'32 clips on {card}: {ms:.4f} ms (median of 20)')
-    v_launches = 0
+    adpcm_err, adpcm_times = adpcm_kernel_checks(card, dev, signals, wires)
+    v_launches = a_launches = 0
     for name in ('adpcm4', 'q6'):
         buf = wires[name][:len(clips)]
         fused_logmel.launches = 0
+        wire_ops._adpcm_decode.launches = 0
         ev_gpu, xml_gpu = gpu.predict_clips(buf)
         launched = fused_logmel.launches
         assert launched > 0, f'the {name} wire did not launch the kernel'
         v_launches += launched
+        if name == 'adpcm4':
+            a_launches = wire_ops._adpcm_decode.launches
+            assert a_launches > 0, \
+                'adpcm4 predict_clips did not launch the ADPCM kernel'
+            print(f'[10] ADPCM kernel launches in adpcm4 predict_clips of '
+                  f'{len(buf)} clips: {a_launches}')
         ev_cpu, xml_cpu = cpu.predict_clips(buf)
         assert ev_gpu == ev_cpu, f'{name} events differ between GPU and CPU'
         assert xml_gpu == xml_cpu, f'{name} XML differs between GPU and CPU'
@@ -2287,13 +2423,18 @@ def main() -> None:
               f'{sum(map(len, ev_pcm))}), kernel launches {launched}; '
               f'events and XML identical to the CPU engine')
     adpcm_bench = np.concatenate([wires['adpcm4'][:len(clips)]] * 8)
-    rates, n_events = clips_per_s(gpu, adpcm_bench)
-    print(f'[10] predict_clips 512 adpcm4 clips, batch 32, on {card}: '
-          f'{[round(r, 1) for r in rates]} clips/s (3 runs), {n_events} '
-          f'events')
+    rates = {'int16': [], 'adpcm4': []}
+    for name in ('int16', 'adpcm4', 'adpcm4', 'int16'):
+        got, n_events = clips_per_s(
+            gpu, bench if name == 'int16' else adpcm_bench, runs=2)
+        rates[name] += [round(r, 1) for r in got]
+    print(f'[10] predict_clips 512 clips, batch 32, on {card} (2 runs each, '
+          f'in turns): adpcm4 {rates["adpcm4"]} clips/s, int16 '
+          f'{rates["int16"]}; {n_events} events on int16')
     profile_batch(gpu, adpcm_bench[:32], '10')
-    decode_profile(wire_ops.dequant_wire,
-                   torch.from_numpy(adpcm_bench[:32]).to(dev), '10')
+    n = decode_profile(wire_ops.dequant_wire,
+                       torch.from_numpy(adpcm_bench[:32]).to(dev), '10')
+    assert 1 <= n <= 2, f'one adpcm4 decode of 32 clips took {n} launches'
 
     # -- 11. predict_clips_stream ------------------------------------------
     fused_logmel.launches = 0
@@ -2388,7 +2529,8 @@ def main() -> None:
     # -- 18. resident file serving and the v6 wire ---------------------------
     torch.cuda.empty_cache()
     t18 = time.perf_counter()
-    n_launch18, v6_kernel = resident_phase(card, dev, cfg, clips, gpu, cpu)
+    n_launch18, a_launches18, v6_kernel = resident_phase(card, dev, cfg,
+                                                         clips, gpu, cpu)
     print(f'[18] resident phase done in {time.perf_counter() - t18:.1f} s')
 
     blocked = [m for m in sys.modules
@@ -2409,11 +2551,20 @@ def main() -> None:
         'bound_ms': bound[0], 'bound_by': bound[1],
         # no single PyTorch call computes log-mel
         'library_ms': None}, {
-        'name': 'v6_predict', 'route': 'cuda',
-        'source': 'sed_tpu_torch/csrc/v6_predict.cu',
-        'replaces': 'sed_tpu/ops/wire.py:468',
-        # no PyTorch call computes this recurrence: library_ms is null
-        **v6_kernel}]}))
+        'name': 'v6_decode', 'route': 'cuda',
+        'source': 'sed_tpu_torch/csrc/v6_decode.cu',
+        'replaces': 'sed_tpu/ops/wire.py:409',
+        # no PyTorch call computes the v6 decode: library_ms is null
+        **v6_kernel}, {
+        'name': 'adpcm_decode', 'route': 'cuda',
+        'source': 'sed_tpu_torch/csrc/adpcm_decode.cu',
+        'replaces': 'sed_tpu/ops/wire.py:335',
+        'launches': a_launches + a_launches18, 'max_abs_err': adpcm_err,
+        'ms': adpcm_times[4, 32][0], 'plain_ms': adpcm_times[4, 32][1],
+        'bound_ms': adpcm_times[4, 32][2][0],
+        'bound_by': adpcm_times[4, 32][2][1],
+        # no PyTorch call decodes IMA ADPCM
+        'library_ms': None}]}))
     print(card_line())
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

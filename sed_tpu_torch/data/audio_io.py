@@ -405,10 +405,11 @@ def read_q4(path: str) -> Tuple[np.ndarray, int, int]:
 #   pad to 16 B
 #
 # Blocks are SELF-CONTAINED (warm-up state stored, no cross-block
-# dependency), so the device decode is fully block-parallel: one word
-# gather at cumsum(w) offsets + static-slice unpacks per width + the
-# 128-step unified recurrence, one CUDA thread per (clip, block) lane
-# (csrc/v6_predict.cu).  See ops/wire.dequant_v6_pool.
+# dependency), so the device decode is fully block-parallel: one CUDA
+# kernel launch (csrc/v6_decode.cu) reads each chunk's words at cumsum(w)
+# offsets, unpacks them in shared memory and runs the 128-step unified
+# recurrence, one thread per (clip, block) lane.  See
+# ops/wire.dequant_v6_pool.
 #
 # Predictor definitions (int32 arithmetic, exact; q_{-1}=init1,
 # q_{-2}=init2):

@@ -13,9 +13,13 @@ ops on the tensor's device:
   repeat every lcm(8, N) bits), the scales bit-cast to float16 and
   multiplied in float32.
 * uint8 IMA ADPCM at 4, 3 and 2 bits per code — both recurrences of the
-  codec (step index, predictor) are chains of saturating adds, resolved
-  by a blocked two-level prefix (``_resolve_clamp_add_chain``) in int32,
-  bit-exact to ``sed_tpu``'s numpy decoders.
+  codec (step index, predictor) are chains of saturating adds.  On the
+  card one launch of the CUDA kernel ``csrc/adpcm_decode.cu`` decodes the
+  batch (``_adpcm_decode``: a warp per block, a warp scan of clamp-add
+  transforms); on the CPU the plain version ``_adpcm_decode_plain``
+  resolves them by a blocked two-level prefix
+  (``_resolve_clamp_add_chain``) in int32.  Both are bit-exact to
+  ``sed_tpu``'s numpy decoders.
 
 Every uint8 width is tied to the decoded clip length: ``dequant_wire``
 needs ``samples`` for a uint8 buffer, and rejects a width that is no
@@ -23,12 +27,18 @@ wire's.
 
 The v6 wire (``audio_io.v6_encode_clip``, the lossless variable-rate
 re-pack of q6) has a byte length per clip, so a batch comes as one flat
-int32 word pool and per-clip word offsets: ``dequant_v6_pool``.  Its
-header parse, width prefix sums, word gathers and sub-group unpacks are
-vectorised torch integer ops; the 128-step predictor recurrence of each
-(clip, block) lane is the CUDA kernel ``csrc/v6_predict.cu`` on the card
-(``_v6_predict``) and a loop over the steps on the CPU
+int32 word pool and per-clip word offsets: ``dequant_v6_pool``.  On the
+card the whole decode (header parse, width prefix sums, word gathers,
+sub-group unpacks and the 128-step predictor recurrence of each (clip,
+block) lane) is one launch of the CUDA kernel ``csrc/v6_decode.cu``; on
+the CPU the plain version ``_v6_decode_plain`` does it in vectorised torch
+integer ops (``v6_fields``) and a loop over the steps
 (``_v6_predict_plain``).
+
+On a CUDA tensor a wrapper launches its kernel or raises; it never falls
+back to the plain version, which runs only for CPU tensors.  The kernels
+are built at first use (``_build.load``); ``_adpcm_decode.launches`` and
+``dequant_v6_pool.launches`` count their launches.
 """
 
 from __future__ import annotations
@@ -206,9 +216,9 @@ def _adpcm_tables(bits: int, device: torch.device):
             torch.from_numpy(audio_io.adpcm_index_table(bits)).to(device))
 
 
-def _adpcm_decode(wav: torch.Tensor, samples: int, bits: int
-                  ) -> torch.Tensor:
-    """IMA ADPCM device decode at ``bits`` per code, bit-exact to
+def _adpcm_decode_plain(wav: torch.Tensor, samples: int, bits: int
+                        ) -> torch.Tensor:
+    """IMA ADPCM decode at ``bits`` per code in torch ops, bit-exact to
     ``audio_io.adpcm_decode_np`` (4) / ``adpcm_n_decode_np`` (3, 2).
 
     The step-index chain depends only on the codes; once it is resolved
@@ -231,6 +241,79 @@ def _adpcm_decode(wav: torch.Tensor, samples: int, bits: int
     out = torch.cat([pred0[:, None], preds], dim=1)      # (lanes, spb)
     out = out.reshape(b, nbl * spb)[:, :samples]
     return out.to(torch.float32) / 32768.0
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernels: plain C interfaces (csrc/<name>.cu), bound with ctypes
+# ---------------------------------------------------------------------------
+
+_ARGTYPES = {
+    # pool, pool words, offsets, out, clips, samples, stream
+    'v6_decode': [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                  ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                  ctypes.c_void_p],
+    # wav, clips, width, bits, out, samples, stream
+    'adpcm_decode': [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                     ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                     ctypes.c_void_p],
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel(name: str):
+    """(library, launch function) of ``csrc/<name>.cu``: built, loaded
+    and its C function bound once."""
+    kl = _build.load(name)
+    fn = getattr(kl.lib, f'sed_{name}')
+    fn.restype = ctypes.c_int
+    fn.argtypes = _ARGTYPES[name]
+    return kl, fn
+
+
+def _launch(name: str, device: torch.device, *args) -> None:
+    """Launch kernel ``name`` on ``device``'s current stream."""
+    kl, fn = _kernel(name)
+    if device.index == torch.cuda.current_device():
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f'{name} kernel launch failed: '
+                           f'{kl.error_string(rc)} ({rc})')
+
+
+def _adpcm_decode(wav: torch.Tensor, samples: int, bits: int
+                  ) -> torch.Tensor:
+    """(B, width) uint8 IMA ADPCM wire at ``bits`` (4, 3 or 2) per code ->
+    (B, samples) float32: the CUDA kernel ``csrc/adpcm_decode.cu`` for a
+    CUDA tensor (one launch for the batch), ``_adpcm_decode_plain`` for a
+    CPU tensor.  ``_adpcm_decode.launches`` counts kernel launches."""
+    if wav.device.type == 'cpu':
+        return _adpcm_decode_plain(wav, samples, bits)
+    if wav.device.type != 'cuda':
+        raise ValueError(f'_adpcm_decode: unsupported device {wav.device}')
+    if bits not in audio_io.ADPCM_N_PAD:
+        raise ValueError(f'_adpcm_decode: no {bits}-bit ADPCM wire')
+    if wav.dtype != torch.uint8 or wav.dim() != 2 or \
+            not wav.is_contiguous():
+        raise ValueError(f'_adpcm_decode wants a contiguous (B, width) '
+                         f'uint8 tensor, got {tuple(wav.shape)} {wav.dtype}')
+    b, width = wav.shape
+    nbl = (width - audio_io.ADPCM_N_PAD[bits]) // audio_io.ADPCM_BLOCK_ALIGN
+    if samples <= 0 or nbl * audio_io.adpcm_n_samples_per_block(
+            bits) < samples:
+        raise ValueError(f'_adpcm_decode: a {width}-byte adpcm{bits} row '
+                         f'does not hold {samples} samples')
+    out = torch.empty((b, samples), dtype=torch.float32, device=wav.device)
+    if b:
+        _launch('adpcm_decode', wav.device, wav.data_ptr(), b, width, bits,
+                out.data_ptr(), samples)
+        _adpcm_decode.launches += 1
+    return out
+
+
+_adpcm_decode.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -273,74 +356,16 @@ def _v6_predict_plain(r: torch.Tensor, order: torch.Tensor,
     return q.to(torch.float32) * scale[:, None]
 
 
-@functools.lru_cache(maxsize=None)
-def _v6_library() -> _build.KernelLibrary:
-    kl = _build.load('v6_predict')
-    fn = kl.lib.sed_v6_predict
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p]
-    return kl
-
-
-def _v6_predict(r: torch.Tensor, order: torch.Tensor, coef: torch.Tensor,
-                init1: torch.Tensor, init2: torch.Tensor,
-                scale: torch.Tensor) -> torch.Tensor:
-    """(lanes, 128) residuals -> (lanes, 128) float32 samples: the CUDA
-    kernel ``csrc/v6_predict.cu`` for CUDA tensors, ``_v6_predict_plain``
-    for CPU tensors (no fallback on the card).
-    ``_v6_predict.launches`` counts kernel launches."""
-    if r.device.type == 'cpu':
-        return _v6_predict_plain(r, order, coef, init1, init2, scale)
-    if r.device.type != 'cuda':
-        raise ValueError(f'_v6_predict: unsupported device {r.device}')
-    lanes = r.shape[0]
-    if r.dim() != 2 or r.shape[1] != audio_io.Q4_BLOCK:
-        raise ValueError(f'_v6_predict wants (lanes, {audio_io.Q4_BLOCK}) '
-                         f'residuals, got {tuple(r.shape)}')
-    for name, x, dtype in (('r', r, torch.int32),
-                           ('order', order, torch.int32),
-                           ('coef', coef, torch.int32),
-                           ('init1', init1, torch.int32),
-                           ('init2', init2, torch.int32),
-                           ('scale', scale, torch.float32)):
-        if x.dtype != dtype or x.device != r.device or \
-                not x.is_contiguous():
-            raise ValueError(f'_v6_predict: {name} must be a contiguous '
-                             f'{dtype} tensor on {r.device}, got {x.dtype} '
-                             f'on {x.device}')
-        if name != 'r' and tuple(x.shape) != (lanes,):
-            raise ValueError(f'_v6_predict: {name} must be ({lanes},), got '
-                             f'{tuple(x.shape)}')
-    out = torch.empty((lanes, audio_io.Q4_BLOCK), dtype=torch.float32,
-                      device=r.device)
-    if lanes == 0:
-        return out
-    kl = _v6_library()
-    with torch.cuda.device(r.device):
-        stream = torch.cuda.current_stream(r.device).cuda_stream
-        rc = kl.lib.sed_v6_predict(
-            r.data_ptr(), order.data_ptr(), coef.data_ptr(),
-            init1.data_ptr(), init2.data_ptr(), scale.data_ptr(),
-            out.data_ptr(), lanes, stream)
-    if rc != 0:
-        raise RuntimeError(f'v6 predictor kernel launch failed: '
-                           f'{kl.error_string(rc)} ({rc})')
-    _v6_predict.launches += 1
-    return out
-
-
-_v6_predict.launches = 0
-
-
 def _i8(v: torch.Tensor) -> torch.Tensor:
     """Unsigned byte values -> their int8 reading, in int32."""
     return ((v + 128) & 255) - 128
 
 
 def v6_fields(pool: torch.Tensor, offsets: torch.Tensor, samples: int):
-    """Everything of a batch of v6 clips but the recurrence: the
-    (B * nb, 128) int32 residuals and the per-lane order, coef, init1,
-    init2 (int32) and float32 scale that ``_v6_predict`` takes."""
+    """Everything of a batch of v6 clips but the recurrence, in torch
+    ops (the plain version's first half): the (B * nb, 128) int32
+    residuals and the per-lane order, coef, init1, init2 (int32) and
+    float32 scale that ``_v6_predict_plain`` takes."""
     nb = samples // audio_io.Q4_BLOCK
     nsub = nb * audio_io._V6_NSUB
     hw = audio_io.v6_header_bytes(nb) // 4
@@ -384,6 +409,15 @@ def v6_fields(pool: torch.Tensor, offsets: torch.Tensor, samples: int):
             init2.reshape(lanes), scale.reshape(lanes))
 
 
+def _v6_decode_plain(pool: torch.Tensor, offsets: torch.Tensor,
+                     samples: int) -> torch.Tensor:
+    """The plain version of the pool decode: ``v6_fields`` then the
+    recurrence, ~216 torch launches and a 128-step loop."""
+    b = offsets.shape[0]
+    return _v6_predict_plain(*v6_fields(pool, offsets, samples)).reshape(
+        b, samples)
+
+
 def dequant_v6_pool(pool: torch.Tensor, offsets: torch.Tensor,
                     samples: int) -> torch.Tensor:
     """Decode a batch of v6 clips from a flat word pool.
@@ -397,8 +431,10 @@ def dequant_v6_pool(pool: torch.Tensor, offsets: torch.Tensor,
     bit-identical to the q6 wire's decode).  Indices are clipped to
     ``P - 1`` as ``sed_tpu`` clips them.
 
-    The gathers and unpacks are a fixed number of torch launches
-    (``v6_fields``); the recurrence is one ``_v6_predict`` launch.
+    A CUDA pool is decoded by one launch of ``csrc/v6_decode.cu`` (its
+    offsets must be a contiguous int32 tensor on the same device); a CPU
+    pool by ``_v6_decode_plain``.  ``dequant_v6_pool.launches`` counts
+    kernel launches.
     """
     if pool.dtype != torch.int32 or pool.dim() != 1:
         raise ValueError(f'dequant_v6_pool wants a (P,) int32 pool, got '
@@ -406,6 +442,29 @@ def dequant_v6_pool(pool: torch.Tensor, offsets: torch.Tensor,
     if samples % audio_io.Q4_BLOCK:
         raise ValueError(f'v6 clips hold whole {audio_io.Q4_BLOCK}-sample '
                          f'blocks, not {samples} samples')
+    if pool.device.type == 'cpu':
+        return _v6_decode_plain(pool, offsets.to(pool.device), samples)
+    if pool.device.type != 'cuda':
+        raise ValueError(f'dequant_v6_pool: unsupported device '
+                         f'{pool.device}')
+    if offsets.dtype != torch.int32 or offsets.dim() != 1 or \
+            offsets.device != pool.device or not offsets.is_contiguous():
+        raise ValueError(f'dequant_v6_pool wants (B,) contiguous int32 '
+                         f'offsets on {pool.device}, got '
+                         f'{tuple(offsets.shape)} {offsets.dtype} on '
+                         f'{offsets.device}')
+    if not pool.is_contiguous() or not 0 < pool.shape[0] < 2 ** 31 or \
+            samples <= 0:
+        raise ValueError(f'dequant_v6_pool: the kernel takes a contiguous '
+                         f'pool of 1 to 2^31 - 1 words and samples > 0, got '
+                         f'{pool.shape[0]} words, {samples} samples')
     b = offsets.shape[0]
-    return _v6_predict(*v6_fields(pool, offsets.to(pool.device),
-                                  samples)).reshape(b, samples)
+    out = torch.empty((b, samples), dtype=torch.float32, device=pool.device)
+    if b:
+        _launch('v6_decode', pool.device, pool.data_ptr(), pool.shape[0],
+                offsets.data_ptr(), out.data_ptr(), b, samples)
+        dequant_v6_pool.launches += 1
+    return out
+
+
+dequant_v6_pool.launches = 0

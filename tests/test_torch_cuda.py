@@ -643,10 +643,12 @@ def _v6_pool(clips):
 
 
 def test_cuda_v6_predictor_kernel_bit_exact(device):
-    """``csrc/v6_predict.cu`` against its plain version on the card and
-    ``v6_decode_np``, bitwise, on bench-corpus clips, a 7.9 kHz tone, a
-    padding row, and hand-made lanes whose order-3 recurrence wraps
-    int32."""
+    """``csrc/v6_decode.cu`` (the whole pool decode, one launch) against
+    its plain version on the card and ``v6_decode_np``, bitwise, on
+    bench-corpus clips, a 7.9 kHz tone and a padding row; then on a
+    seeded random-word pool (width-7 modes, order-3 wrap, NaN scales,
+    offsets into the tail, past the pool and negative); and its
+    refusals."""
     from sed_tpu_torch.bench_corpus import make_clips
     from sed_tpu_torch.data import audio_io
     from sed_tpu_torch.ops import wire
@@ -655,34 +657,80 @@ def test_cuda_v6_predictor_kernel_bit_exact(device):
                             (0.9 * np.sin(2 * np.pi * 7900 * t))[None]
                             ]).astype(np.float32)
     rows, pool, offsets = _v6_pool(clips)
-    fields = wire.v6_fields(torch.from_numpy(pool).to(device),
-                            torch.from_numpy(offsets).to(device), 80000)
-    before = wire._v6_predict.launches
-    got = wire._v6_predict(*fields)
-    assert wire._v6_predict.launches == before + 1
-    want = wire._v6_predict_plain(*fields)
+    pool_d = torch.from_numpy(pool).to(device)
+    offs_d = torch.from_numpy(offsets).to(device)
+    before = wire.dequant_v6_pool.launches
+    got = wire.dequant_v6_pool(pool_d, offs_d, 80000)
+    assert wire.dequant_v6_pool.launches == before + 1
+    want = wire._v6_decode_plain(pool_d, offs_d, 80000)
     torch.cuda.synchronize()
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
-    dec = wire.dequant_v6_pool(torch.from_numpy(pool).to(device),
-                               torch.from_numpy(offsets).to(device), 80000)
-    dec = dec.cpu().numpy()
+    dec = got.cpu().numpy()
     for i, row in enumerate(rows):
         assert np.array_equal(dec[i].view(np.int32), audio_io.v6_decode_np(
             row, 80000).view(np.int32))
     assert not dec[-1].view(np.int32).any()
     rng = np.random.RandomState(0)
-    lanes = 300
-    args = [rng.randint(-32, 32, (lanes, 128)), np.arange(lanes) % 4,
-            rng.randint(-128, 128, lanes), rng.randint(-128, 128, lanes),
-            rng.randint(-128, 128, lanes)]
-    args = [torch.from_numpy(a.astype(np.int32)).to(device) for a in args]
-    args.append(torch.from_numpy(rng.uniform(1e-3, 3e-2, lanes).astype(
-        np.float32)).to(device))
-    assert torch.equal(wire._v6_predict(*args).view(torch.int32),
-                       wire._v6_predict_plain(*args).view(torch.int32))
+    for samples in (80000, 16000, 4096 + 128):
+        words = torch.from_numpy(rng.randint(
+            -2 ** 31, 2 ** 31, 40000, dtype=np.int64).astype(np.int32))
+        offs = torch.from_numpy(np.array(
+            [0, 17, 39990, 39999, 50000, -5, 2 ** 31 - 9, 12345], np.int32))
+        got = wire.dequant_v6_pool(words.to(device), offs.to(device), samples)
+        want = wire._v6_decode_plain(words.to(device), offs.to(device),
+                                     samples)
+        assert torch.isnan(want).any()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    with pytest.raises(ValueError, match='offsets'):
+        wire.dequant_v6_pool(pool_d, offs_d.long(), 80000)
+    with pytest.raises(ValueError, match='offsets'):
+        wire.dequant_v6_pool(pool_d, offs_d.cpu(), 80000)
+    with pytest.raises(ValueError, match='blocks'):
+        wire.dequant_v6_pool(pool_d, offs_d, 80000 + 64)
+
+
+ADPCM_BITS = pytest.mark.parametrize('bits', [4, 3, 2])
+
+
+@ADPCM_BITS
+def test_cuda_adpcm_kernel_bit_exact(device, bits):
+    """``csrc/adpcm_decode.cu`` against its plain version on the card,
+    bitwise, at 1, 32 and 256 rows of 5 s and 10 s: encodings of
+    bench-corpus clips and a full-scale square wave, and seeded random
+    bytes (clamped step indices, saturating codes); one launch a decode;
+    the wrapper's refusals."""
+    from sed_tpu_torch.bench_corpus import make_clips
+    from sed_tpu_torch.data import audio_io
+    from sed_tpu_torch.ops import wire
+    rng = np.random.RandomState(bits)
+    for samples in (80000, 160000):
+        sq = np.where((np.arange(samples) // 37) % 2 == 0, 1.0, -1.0)
+        x = np.concatenate([make_clips(7, 16000, seconds=samples // 16000,
+                                       seed=bits), sq[None]])
+        enc = (audio_io.adpcm_encode_np(x) if bits == 4
+               else audio_io.adpcm_n_encode_np(x, bits))
+        for rows in (1, 32, 256):
+            for buf in (enc[np.arange(rows) % len(enc)],
+                        rng.randint(0, 256, (rows, enc.shape[1])).astype(
+                            np.uint8)):
+                wav = torch.from_numpy(buf).to(device)
+                before = wire._adpcm_decode.launches
+                got = wire.dequant_wire(wav, samples)
+                assert wire._adpcm_decode.launches == before + 1
+                want = wire._adpcm_decode_plain(wav, samples, bits)
+                torch.cuda.synchronize()
+                assert got.shape == (rows, samples)
+                assert torch.equal(got.view(torch.int32),
+                                   want.view(torch.int32))
+    wide = torch.zeros((2, enc.shape[1] + 3), dtype=torch.uint8,
+                       device=device)
     with pytest.raises(ValueError, match='contiguous'):
-        wire._v6_predict(args[0], *[a.double() if i == 4 else a
-                                    for i, a in enumerate(args[1:])])
+        wire._adpcm_decode(wide[:, :enc.shape[1]], 160000, bits)
+    with pytest.raises(ValueError, match='contiguous'):
+        wire._adpcm_decode(wide[:, :enc.shape[1]].short(), 160000, bits)
+    with pytest.raises(ValueError, match='hold'):
+        wire._adpcm_decode(wide[:, :enc.shape[1] - 256].contiguous(),
+                           160000, bits)
 
 
 def test_cuda_resident_passes_match_cpu(device):

@@ -3,7 +3,10 @@ the device decode against ``sed_tpu.ops.wire.dequant_wire`` (JAX on the
 CPU) and against ``sed_tpu``'s numpy decoders, the v6 pool decode
 against ``sed_tpu.ops.wire.dequant_v6_pool``, and the engine's
 ``predict_clips`` on each wire against ``sed_tpu``'s engine on the same
-buffers.
+buffers.  On the CPU the decodes run their plain versions; the CUDA
+kernels' decomposition of the ADPCM chains (``csrc/adpcm_decode.cu``) is
+emulated here and held to ``sed_tpu`` too, and seeded random bytes and
+words pin what the kernels must match on any input.
 
 Tolerance: none.  Decodes are compared bitwise (``np.array_equal`` of
 the float32 bit patterns); events and XML must be identical.  The
@@ -16,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from sed_tpu.config import AUDIO_16K
 from sed_tpu.data import audio_io as jax_audio_io
@@ -185,8 +189,9 @@ def test_v6_predictor_plain_keeps_int32_arithmetic():
     init1 = rng.randint(-128, 128, lanes).astype(np.int32)
     init2 = rng.randint(-128, 128, lanes).astype(np.int32)
     scale = rng.uniform(0.001, 0.03, lanes).astype(np.float32)
-    got = wire._v6_predict(*(torch.from_numpy(a) for a in (
+    got = wire._v6_predict_plain(*(torch.from_numpy(a) for a in (
         r, order, coef, init1, init2, scale))).numpy()
+
     def recurrence(dtype):
         qp, qp2 = init1.astype(dtype), init2.astype(dtype)
         q = np.empty(r.shape, dtype)
@@ -202,7 +207,203 @@ def test_v6_predictor_plain_keeps_int32_arithmetic():
     assert np.abs(recurrence(np.int64)).max() > 2 ** 31  # order 3 wraps
     assert np.array_equal(_bits(got), _bits(q.astype(np.float32)
                                             * scale[:, None]))
-    assert wire._v6_predict.launches == 0           # the CPU runs plain
+    assert wire.dequant_v6_pool.launches == 0       # the CPU runs plain
+
+
+ADPCM_BITS = pytest.mark.parametrize('bits', [4, 3, 2])
+
+
+def _random_adpcm(bits: int, samples: int, rows: int, seed: int
+                  ) -> np.ndarray:
+    """Seeded random bytes at the adpcm``bits`` wire width: step-index
+    bytes mostly > 88 (clamped), codes that saturate the predictor, and
+    a row of all-ones bytes (every code the largest negative step)."""
+    width = audio_io.adpcm_n_bytes(samples, bits)
+    buf = np.random.RandomState(seed).randint(0, 256, (rows, width))
+    buf[-1] = 255
+    return buf.astype(np.uint8)
+
+
+def _jax_decode(buf: np.ndarray, samples: int) -> np.ndarray:
+    return np.asarray(jax_wire.dequant_wire(jnp.asarray(buf), samples))
+
+
+@ADPCM_BITS
+def test_adpcm_random_bytes_bitwise_equal_to_sed_tpu(bits):
+    """What the ADPCM kernel must match on any bytes: the port's plain
+    decode against sed_tpu's JAX ``dequant_wire`` and numpy decoder."""
+    samples = 16000
+    buf = _random_adpcm(bits, samples, 6, seed=bits)
+    assert (buf[:, 2::audio_io.ADPCM_BLOCK_ALIGN] > 88).mean() > 0.5
+    got = wire.dequant_wire(torch.from_numpy(buf), samples).numpy()
+    assert np.abs(got).max() == 1.0                  # the predictor clamps
+    assert np.array_equal(_bits(got), _bits(_jax_decode(buf, samples)))
+    decode_np = ENCODERS['adpcm4' if bits == 4 else f'adpcm{bits}'][1]
+    assert np.array_equal(_bits(got), _bits(decode_np(buf, samples)))
+
+
+def _warp_scan_chain(a: torch.Tensor, lo: int, hi: int, x0: torch.Tensor,
+                     group: int) -> torch.Tensor:
+    """The kernel's resolution of ``x_t = clip(x_{t-1} + a_t, lo, hi)``:
+    32 threads of ``group`` steps each compose their transforms, an
+    inclusive Hillis-Steele scan over the threads (5 rounds of shifts by
+    1, 2, 4, 8, 16), each thread's start state from the exclusive prefix,
+    then its own steps one by one.  Returns the states after each step."""
+    lanes = a.shape[0]
+    ta = a.reshape(lanes, 32, group)
+    ca = ta.sum(dim=-1, dtype=torch.int32)
+    cl = torch.full_like(ca, lo)
+    cu = torch.full_like(ca, hi)
+    for k in range(group):
+        cl = (cl + ta[..., k]).clamp(lo, hi)
+        cu = (cu + ta[..., k]).clamp(lo, hi)
+    d = 1
+    while d < 32:
+        pa, pl, pu = (F.pad(x[:, :-d], (d, 0)) for x in (ca, cl, cu))
+        on = torch.arange(32) >= d
+        nl = torch.minimum(torch.maximum(pl + ca, cl), cu)
+        nu = torch.minimum(torch.maximum(pu + ca, cl), cu)
+        ca, cl, cu = (torch.where(on, n, x) for n, x in (
+            (pa + ca, ca), (nl, cl), (nu, cu)))
+        d *= 2
+    ea = F.pad(ca[:, :-1], (1, 0))
+    el = F.pad(cl[:, :-1], (1, 0), value=lo)
+    eu = F.pad(cu[:, :-1], (1, 0), value=hi)
+    x = torch.minimum(torch.maximum(x0[:, None] + ea, el), eu)
+    out = []
+    for k in range(group):
+        x = (x + ta[..., k]).clamp(lo, hi)
+        out.append(x)
+    return torch.stack(out, dim=-1).reshape(lanes, 32 * group)
+
+
+def _adpcm_kernel_emulation(buf: np.ndarray, samples: int, bits: int,
+                            chain) -> np.ndarray:
+    """``csrc/adpcm_decode.cu``'s decomposition on the CPU: each block's
+    codes padded to 32 threads x G (16, 21 or 32) with the identity
+    transform of the chain's own bounds (a = 0), both chains resolved by
+    ``chain`` with ``group`` = G, the pads cut."""
+    group = {4: 16, 3: 21, 2: 32}[bits]
+    pred0, idx0, codes, b, nbl, spb = wire._adpcm_split(
+        torch.from_numpy(buf), bits)
+    steps, itab = wire._adpcm_tables(bits, torch.device('cpu'))
+    pad = 32 * group - codes.shape[1]
+    assert 0 <= pad < group
+    idx_after = chain(F.pad(itab[codes.long()], (0, pad)), 0, 88, idx0,
+                      group)[:, :spb - 1]
+    idx_prev = torch.cat([idx0[:, None], idx_after[:, :-1]], dim=1)
+    step = steps[idx_prev.long()]
+    diff = step >> (bits - 1)
+    for k in range(bits - 2, -1, -1):
+        diff = diff + torch.where((codes & (1 << k)) != 0,
+                                  step >> (bits - 2 - k), 0)
+    signed = torch.where((codes & (1 << (bits - 1))) != 0, -diff, diff)
+    preds = chain(F.pad(signed, (0, pad)), -32768, 32767, pred0,
+                  group)[:, :spb - 1]
+    out = torch.cat([pred0[:, None], preds], dim=1).reshape(b, nbl * spb)
+    return (out[:, :samples].to(torch.float32) / 32768.0).numpy()
+
+
+@pytest.mark.parametrize('chain', ['blocked_prefix', 'warp_scan'])
+@ADPCM_BITS
+def test_adpcm_kernel_decomposition_bitwise_equal_to_sed_tpu(bits, chain):
+    """The kernel's padding and grouping, emulated with the blocked
+    prefix (``_resolve_clamp_add_chain``, group = codes a thread) and
+    with the warp scan itself, on encodings of ``_signals`` and on
+    random bytes: bitwise equal to sed_tpu's JAX decode."""
+    fn = {'blocked_prefix': wire._resolve_clamp_add_chain,
+          'warp_scan': _warp_scan_chain}[chain]
+    samples = 16000
+    name = 'adpcm4' if bits == 4 else f'adpcm{bits}'
+    for buf in (ENCODERS[name][0](_signals(samples)),
+                _random_adpcm(bits, samples, 4, seed=10 + bits)):
+        want = _jax_decode(buf, samples)
+        assert np.array_equal(_bits(_adpcm_kernel_emulation(
+            buf, samples, bits, fn)), _bits(want))
+
+
+def test_dequant_v6_pool_random_words_bitwise_equal_to_sed_tpu():
+    """What the v6 kernel must match on any words: a seeded random-word
+    pool (every order and width, width-7 modes, NaN and inf scales),
+    one clip whose header makes order 3 wrap int32, offsets into the
+    pool's tail, past ``P`` and negative, through the port's plain
+    decode and sed_tpu's JAX ``dequant_v6_pool``."""
+    samples = 16000
+    nb = samples // audio_io.Q4_BLOCK
+    hb = audio_io.v6_header_bytes(nb)
+    rng = np.random.RandomState(6)
+    pool = rng.randint(0, 256, 4 * 6000).astype(np.uint8)
+    # words 100..: order 3, coef 127, init1 127, init2 -128, width 6
+    head = pool[400:400 + hb]
+    head[:2 * nb] = np.frombuffer(np.full(nb, 0.001, np.float16).tobytes(),
+                                  np.uint8)
+    head[2 * nb:4 * nb] = np.frombuffer(np.full(
+        nb, 3 | (6 << 2) | (6 << 5) | (6 << 8) | (6 << 11), np.uint16
+    ).tobytes(), np.uint8)
+    head[4 * nb:7 * nb] = np.repeat(np.array([127, 128, 127], np.uint8), nb)
+    pool[:2] = (0, 0x7c)                        # clip 0, block 0: scale inf
+    pool = pool.view(np.int32)
+    offsets = np.array([0, 100, 3, 5990, 5999, 7000, -9, 2 ** 31 - 50],
+                       np.int32)
+    got = wire.dequant_v6_pool(torch.from_numpy(pool),
+                               torch.from_numpy(offsets), samples).numpy()
+    want = jax_wire.dequant_v6_pool(jnp.asarray(pool), jnp.asarray(offsets),
+                                    samples)
+    assert np.array_equal(_bits(got), _bits(want))
+    fields = wire.v6_fields(torch.from_numpy(pool),
+                            torch.from_numpy(offsets), samples)
+    order = fields[1].numpy()
+    assert {0, 1, 2, 3} <= set(order.tolist())
+    assert np.isnan(got).any() and np.isinf(got).any()
+    head = pool.view(np.uint8)[:hb]             # clip 0: random words
+    widths = (head[2 * nb:4 * nb].view(np.uint16)[:, None]
+              >> (2 + 3 * np.arange(4))) & 7
+    assert (widths == 7).any() and (widths == 0).any()
+    # the crafted clip: its order-3 recurrence leaves int32 (Python ints)
+    r, order, coef, init1, init2 = (x.tolist() for x in fields[:5])
+    lane = nb                                   # clip 1, block 0
+    assert (order[lane], coef[lane], init1[lane], init2[lane]) == (
+        3, 127, 127, -128)
+    qp, qp2, peak = init1[lane], init2[lane], 0
+    for t in range(128):
+        qp, qp2 = r[lane][t] + ((coef[lane] * qp + 16) >> 5) - qp2, qp
+        peak = max(peak, abs(qp))
+    assert peak > 2 ** 31
+
+
+def test_cpu_decodes_launch_no_kernel_and_build_nothing(monkeypatch):
+    """On the CPU ``dequant_wire`` (every ADPCM width) and
+    ``dequant_v6_pool`` run their plain versions: both kernel counters
+    stay 0 and nothing is built.  A device that is neither the CPU nor
+    CUDA is refused."""
+    def no_build(name):
+        raise AssertionError(f'built {name} on the CPU')
+
+    monkeypatch.setattr(wire._build, 'load', no_build)
+    monkeypatch.setattr(wire._adpcm_decode, 'launches', 0)
+    monkeypatch.setattr(wire.dequant_v6_pool, 'launches', 0)
+    samples = 16000
+    for bits in (4, 3, 2):
+        buf = _random_adpcm(bits, samples, 2, seed=20 + bits)
+        assert wire.dequant_wire(torch.from_numpy(buf),
+                                 samples).shape == (2, samples)
+    rows = [audio_io.v6_encode_clip(c) for c in _v6_signals(samples)[:2]]
+    pool, offsets = _v6_pool(rows)
+    assert wire.dequant_v6_pool(torch.from_numpy(pool),
+                                torch.from_numpy(offsets),
+                                samples).shape == (3, samples)
+    assert wire._adpcm_decode.launches == 0
+    assert wire.dequant_v6_pool.launches == 0
+    meta = torch.device('meta')
+    with pytest.raises(ValueError, match='device'):
+        wire.dequant_wire(torch.zeros(2, audio_io.adpcm_bytes(samples),
+                                      dtype=torch.uint8, device=meta),
+                          samples)
+    with pytest.raises(ValueError, match='device'):
+        wire.dequant_v6_pool(torch.zeros(100, dtype=torch.int32,
+                                         device=meta),
+                             torch.zeros(2, dtype=torch.int32, device=meta),
+                             samples)
 
 
 @pytest.mark.parametrize('samples', [80000, 96000, 160000])
