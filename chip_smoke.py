@@ -11,7 +11,8 @@ checks it against the same engine on the CPU.  Phases:
 1. card, power limit, torch / CUDA versions, TF32 flags (both turned off);
 2. build of the CUDA kernels from ``sed_tpu_torch/csrc`` (log-mel, the v6
    pool decode and the ADPCM decode; one nvcc a source, started together,
-   sm_90a), the time, and ptxas's registers and spills (no spills);
+   sm_90a), the time, and ptxas's registers, shared memory and spills (no
+   spills);
 3. kernel against its plain PyTorch version at 8, 16 and 32 kHz, with a
    frame count no tile divides, near-silent, digitally silent and
    full-scale clips, and with a mel filter on the Nyquist bin (rtol 1e-4,
@@ -167,8 +168,10 @@ checks it against the same engine on the CPU.  Phases:
 ``python3 chip_smoke.py --families-only`` runs phases 1, 2 and 14 alone,
 ``--gamma-only`` phases 1, 2 and 15, ``--bf16-only`` phases 1, 2 and 16,
 ``--parallel-only`` phases 1, 2 and 17 (the last two may be given
-together), ``--resident-only`` phases 1, 2 and 18, and none prints a
-result line (for work on that phase).
+together), ``--resident-only`` phases 1, 2 and 18, ``--adpcm-only``
+phases 1, 2 and phase 10's ADPCM kernel checks and times
+(``adpcm_kernel_checks``), and none prints a result line (for work on
+that phase).
 
 Phases 4, 7, 8, 9, 10, 11, 12, 13, 14, 16, 17 and 18 drive the main
 paths: each sets the kernel's launch count to 0 just before and reads it
@@ -200,6 +203,9 @@ from concurrent.futures import ThreadPoolExecutor
 REPO = os.path.dirname(os.path.abspath(__file__))
 KERNELS = ('logmel', 'v6_decode', 'adpcm_decode')  # csrc/<name>.cu
 TOL = dict(rtol=1e-4, atol=1e-3)        # dB; tests/test_ops.py's tolerance
+# Hopper's INT32 pipe: 64 operations a clock on each of an H100 SXM's 132
+# SMs at its 1.98 GHz boost clock (the table's 67 T/s is float32 FMA)
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
 FRAMEWISE_ATOL = 1e-4
 
 
@@ -464,8 +470,9 @@ def adpcm_bound_ms(rows: int, width: int, samples: int, bits: int) -> tuple:
     """The least time an H100 SXM could take for the ADPCM decode of a
     (rows, width) uint8 wire to (rows, samples) float32: the larger of
     its bytes (the wire read once, the output written once, the 89-entry
-    step table and the index table) over 3.35 TB/s and its operations
-    over the 67 T/s of the CUDA cores, counted per sample: the step
+    step table and the index table) over 3.35 TB/s and its integer
+    operations over the INT32 pipe's ~16.7 T/s (``INT32_OPS_PER_S``),
+    counted per sample: the step
     lookup, the diff's shift and bits - 1 conditional adds (2 each), the
     sign, the clamped add of the predictor (3), the index lookup and its
     clamped add (4) and the scaling (2).  Returns (ms, 'bytes' or
@@ -473,15 +480,16 @@ def adpcm_bound_ms(rows: int, width: int, samples: int, bits: int) -> tuple:
     nbytes = rows * width + 4 * rows * samples + 4 * (89 + (1 << bits))
     ops = rows * samples * (2 * (bits - 1) + 12)
     bytes_ms = nbytes / 3.35e12 * 1e3
-    ops_ms = ops / 67e12 * 1e3
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
     return max(ops_ms, bytes_ms), ('operations' if ops_ms > bytes_ms
                                    else 'bytes'), ops_ms, bytes_ms
 
 
 def adpcm_kernel_checks(card: str, dev, signals, wires) -> tuple:
     """Phase 10's ADPCM kernel checks: bitwise against its plain version
-    on the card for adpcm4/3/2 on the encoded signals and on 32 rows of
-    seeded random bytes of each wire width, then kernel (queued behind a
+    on the card for adpcm4/3/2 on the encoded signals, on 32 rows of
+    seeded random bytes of each wire width and on their last 31 rows (a
+    row slice: an odd start address), then kernel (queued behind a
     spin kernel), plain (CUDA events) and bound at 32 x 80000 and at the
     training shape 256 x 160000.  Returns the largest |kernel - plain|
     and {(bits, rows): (ms, plain ms, bound)}."""
@@ -496,13 +504,16 @@ def adpcm_kernel_checks(card: str, dev, signals, wires) -> tuple:
         name = f'adpcm{bits}'
         enc10 = (audio_io.adpcm_encode_np(long_x) if bits == 4
                  else audio_io.adpcm_n_encode_np(long_x, bits))
+        rand = torch.from_numpy(rng.randint(
+            0, 256, (32, wires[name].shape[1])).astype(np.uint8)).to(dev)
         cases = {
-            'encoded signals': (wires[name], 80000),
-            'random bytes': (rng.randint(0, 256, (32, wires[name].shape[1]))
-                             .astype(np.uint8), 80000),
-            '10 s encoded x 8': (np.concatenate([enc10] * 8), 160000)}
-        for tag, (buf, samples) in cases.items():
-            wav = torch.from_numpy(buf).to(dev)
+            'encoded signals': (torch.from_numpy(wires[name]).to(dev), 80000),
+            'random bytes': (rand, 80000),
+            'random bytes at an odd address': (rand[1:], 80000),
+            '10 s encoded x 8': (torch.from_numpy(np.concatenate(
+                [enc10] * 8)).to(dev), 160000)}
+        assert rand[1:].data_ptr() % 2 == 1
+        for tag, (wav, samples) in cases.items():
             got = wire_ops._adpcm_decode(wav, samples, bits)
             want = wire_ops._adpcm_decode_plain(wav, samples, bits)
             assert torch.equal(got.view(torch.int32),
@@ -510,15 +521,15 @@ def adpcm_kernel_checks(card: str, dev, signals, wires) -> tuple:
                 f'{name} {tag}: the ADPCM kernel differs from its plain version'
             err = max(err, (got - want).abs().max().item())
         print(f'[10] {name} kernel bit-exact to its plain version on the '
-              f'card: ' + ', '.join(f'{tag} {cases[tag][0].shape}'
+              f'card: ' + ', '.join(f'{tag} {tuple(cases[tag][0].shape)}'
                                     for tag in cases))
-        for rows, (buf, samples) in ((32, (wires[name][:32], 80000)),
+        for rows, (wav, samples) in ((32, (cases['encoded signals'][0][:32],
+                                           80000)),
                                      (256, cases['10 s encoded x 8'])):
-            wav = torch.from_numpy(buf).to(dev)
             ms = queued_ms(lambda: wire_ops._adpcm_decode(wav, samples, bits))
             plain_ms = cuda_ms(lambda: wire_ops._adpcm_decode_plain(
                 wav, samples, bits), runs=5)
-            bound = adpcm_bound_ms(rows, buf.shape[1], samples, bits)
+            bound = adpcm_bound_ms(rows, wav.shape[1], samples, bits)
             times[bits, rows] = (ms, plain_ms, bound)
             print(f'[10] {name} decode of {rows} x {samples} on {card}: '
                   f'kernel {ms!r} ms (20 launches queued behind a spin '
@@ -1807,9 +1818,9 @@ def v6_bound_ms(read_bytes: int, order) -> tuple:
     """The least time an H100 SXM could take for the whole v6 pool
     decode: the larger of its bytes (``v6_read_bytes``, read once, and
     the float32 output, 128 samples a lane, written once) over 3.35 TB/s
-    and its operations over the 67 TFLOP/s of the CUDA cores (the
-    table's rate for 32-bit types; int32 issues at half of it, still far
-    below the bytes), counted per sample for each lane's order: the
+    and its integer operations over the INT32 pipe's ~16.7 T/s
+    (``INT32_OPS_PER_S``; the conversion and the scale are counted at
+    that rate too), counted per sample for each lane's order: the
     unpack's shift, mask and offset (3), the add of the residual, the int
     -> float conversion and the scale multiply (3), plus 0 / 0 / 2 / 4
     operations of the order 0 / 1 / 2 / 3 prediction.  Returns (ms,
@@ -1819,7 +1830,7 @@ def v6_bound_ms(read_bytes: int, order) -> tuple:
     per_order = np.array([6, 6, 8, 10])
     ops = 128 * per_order[order].sum()
     bytes_ms = (read_bytes + 4 * 128 * order.size) / 3.35e12 * 1e3
-    ops_ms = float(ops) / 67e12 * 1e3
+    ops_ms = float(ops) / INT32_OPS_PER_S * 1e3
     return max(ops_ms, bytes_ms), ('operations' if ops_ms > bytes_ms
                                    else 'bytes'), ops_ms, bytes_ms
 
@@ -2101,7 +2112,10 @@ def main() -> None:
         spills = [int(a) + int(b) for a, b in re.findall(
             r'(\d+) bytes spill stores, (\d+) bytes spill loads',
             lib.build_log)]
-        print(f'[2] ptxas {lib.name}: registers {regs}, spill bytes {spills}')
+        smem = [int(b) for b in re.findall(r'(\d+) bytes smem',
+                                           lib.build_log)]
+        print(f'[2] ptxas {lib.name}: registers {regs}, shared memory '
+              f'bytes {smem}, spill bytes {spills}')
         assert regs and spills and not any(spills), \
             f'ptxas spilled registers in {lib.name}'
 
@@ -2131,6 +2145,20 @@ def main() -> None:
                 print(f'[{phase}] phase done in '
                       f'{time.perf_counter() - t0:.1f} s')
         print('phases 3-15 were not run: no result')
+        return
+
+    if '--adpcm-only' in sys.argv[1:]:
+        signals = make_clips(64, config.AUDIO_16K.sample_rate, seconds=5,
+                             seed=0)
+        sq = np.where((np.arange(signals.shape[1]) // 37) % 2 == 0, 1.0, -1.0)
+        signals = np.concatenate([signals, sq[None], np.zeros_like(
+            signals[:1])]).astype(np.float32)
+        wires = {'adpcm4': audio_io.adpcm_encode_np(signals),
+                 **{f'adpcm{n}': audio_io.adpcm_n_encode_np(signals, n)
+                    for n in (3, 2)}}
+        adpcm_kernel_checks(card, dev, signals, wires)
+        print('[10] ADPCM kernel checks done; phases 3-18 were not run: '
+              'no result')
         return
 
     if '--resident-only' in sys.argv[1:]:

@@ -15,8 +15,11 @@ ops on the tensor's device:
 * uint8 IMA ADPCM at 4, 3 and 2 bits per code — both recurrences of the
   codec (step index, predictor) are chains of saturating adds.  On the
   card one launch of the CUDA kernel ``csrc/adpcm_decode.cu`` decodes the
-  batch (``_adpcm_decode``: a warp per block, a warp scan of clamp-add
-  transforms); on the CPU the plain version ``_adpcm_decode_plain``
+  batch (``_adpcm_decode``: persistent CUDA blocks walk runs of 8 ADPCM
+  blocks, each run's bytes brought in by a TMA bulk copy, a warp per
+  ADPCM block resolving both chains by warp scans of clamp-add
+  transforms, the run's samples stored as float4); on the CPU the plain
+  version ``_adpcm_decode_plain``
   resolves them by a blocked two-level prefix
   (``_resolve_clamp_add_chain``) in int32.  Both are bit-exact to
   ``sed_tpu``'s numpy decoders.
@@ -287,8 +290,10 @@ def _adpcm_decode(wav: torch.Tensor, samples: int, bits: int
                   ) -> torch.Tensor:
     """(B, width) uint8 IMA ADPCM wire at ``bits`` (4, 3 or 2) per code ->
     (B, samples) float32: the CUDA kernel ``csrc/adpcm_decode.cu`` for a
-    CUDA tensor (one launch for the batch), ``_adpcm_decode_plain`` for a
-    CPU tensor.  ``_adpcm_decode.launches`` counts kernel launches."""
+    CUDA tensor (one launch for the batch; the tensor may start at any
+    byte address, e.g. a row slice of odd width), ``_adpcm_decode_plain``
+    for a CPU tensor.  ``_adpcm_decode.launches`` counts kernel
+    launches."""
     if wav.device.type == 'cpu':
         return _adpcm_decode_plain(wav, samples, bits)
     if wav.device.type != 'cuda':

@@ -528,6 +528,8 @@ class SedInferenceEngine:
                                      f'exceeds batch_size '
                                      f'{self.batch_size}')
                 self._check_clip_widths(chunk)
+                if not len(chunk):          # adds no clips, runs no forward
+                    continue
                 i0 = len(per_clip)
                 fw, _ = self._forward(chunk)
                 chunk_names = (names[i0:i0 + len(chunk)] if names is not None
@@ -672,6 +674,12 @@ class SedInferenceEngine:
         or decoded.  Per batch the forward and coverage normalisation,
         then one pull of the whole pass (``_pull_tracks``), the host
         decode and the XML, as ``predict_clips`` does."""
+        if not n:                  # no clips: no forward, no pull
+            if telemetry is not None:
+                telemetry.update(times, launch_s=0.0, pull_s=0.0,
+                                 decode_s=0.0, bytes_h2d=int(bytes_h2d),
+                                 bytes_d2h=0, n_batches=0)
+            return [], []
         t1 = time.perf_counter()
         framewise = []
         for i0 in range(0, n, self.batch_size):

@@ -695,10 +695,12 @@ ADPCM_BITS = pytest.mark.parametrize('bits', [4, 3, 2])
 @ADPCM_BITS
 def test_cuda_adpcm_kernel_bit_exact(device, bits):
     """``csrc/adpcm_decode.cu`` against its plain version on the card,
-    bitwise, at 1, 32 and 256 rows of 5 s and 10 s: encodings of
+    bitwise, at 1, 7, 32, 33 and 256 rows of 5 s and 10 s (a part run of
+    ADPCM blocks at every row's end, a part last wave): encodings of
     bench-corpus clips and a full-scale square wave, and seeded random
-    bytes (clamped step indices, saturating codes); one launch a decode;
-    the wrapper's refusals."""
+    bytes (clamped step indices, saturating codes); inputs at an odd
+    byte address (a contiguous view at storage offset 1, a row slice
+    ``big[1:]``); one launch a decode; the wrapper's refusals."""
     from sed_tpu_torch.bench_corpus import make_clips
     from sed_tpu_torch.data import audio_io
     from sed_tpu_torch.ops import wire
@@ -709,11 +711,18 @@ def test_cuda_adpcm_kernel_bit_exact(device, bits):
                                        seed=bits), sq[None]])
         enc = (audio_io.adpcm_encode_np(x) if bits == 4
                else audio_io.adpcm_n_encode_np(x, bits))
-        for rows in (1, 32, 256):
-            for buf in (enc[np.arange(rows) % len(enc)],
-                        rng.randint(0, 256, (rows, enc.shape[1])).astype(
-                            np.uint8)):
-                wav = torch.from_numpy(buf).to(device)
+        width = enc.shape[1]
+        big = torch.from_numpy(rng.randint(0, 256, (34, width)).astype(
+            np.uint8)).to(device)
+        flat = torch.cat([big.new_zeros(1), big.reshape(-1)])
+        unaligned = (flat[1:].view(34, width), big[1:])
+        assert all(w.is_contiguous() and w.data_ptr() % 2 for w in unaligned)
+        for rows in (1, 7, 32, 33, 256):
+            for wav in (torch.from_numpy(enc[np.arange(rows) % len(enc)]),
+                        torch.from_numpy(rng.randint(
+                            0, 256, (rows, width)).astype(np.uint8)),
+                        *(w[:rows] for w in unaligned if rows <= 33)):
+                wav = wav.to(device)
                 before = wire._adpcm_decode.launches
                 got = wire.dequant_wire(wav, samples)
                 assert wire._adpcm_decode.launches == before + 1

@@ -196,6 +196,17 @@ def test_resident_paths_refuse_what_they_do_not_take(engines, clips):
         two.predict_clips_resident(rows)
 
 
+def test_zero_clips_resident_give_no_results(engines):
+    """A (0, 80000) int16 pass: ``([], [])`` from both packages'
+    ``predict_clips_resident``, no batch run."""
+    ref, port = engines
+    empty = np.zeros((0, 80000), np.int16)
+    tel = {}
+    assert port.predict_clips_resident(empty, telemetry=tel) == ([], [])
+    assert tel['n_batches'] == 0 and tel['bytes_d2h'] == 0
+    assert ref.predict_clips_resident(empty) == ([], [])
+
+
 def test_warmup_and_measure_forward_ms(engines, clips):
     _, port = engines
     port.warmup(FORMATS['q6'][1](clips))

@@ -98,6 +98,18 @@ def test_predict_clips_stream_on_a_wire(port, pcm):
         port.predict_clips(buf)
 
 
+def test_predict_clips_stream_skips_an_empty_chunk(port, ref, pcm):
+    """Chunks of 1, 2 and 0 clips: the empty chunk adds no clips and
+    runs no forward; events and XML of the three clips identical to
+    sed_tpu's ``predict_clips_stream`` on the same chunks."""
+    def chunks():
+        return iter([pcm[:1], pcm[1:3], pcm[:0]])
+    got = port.predict_clips_stream(chunks())
+    assert len(got[0]) == len(got[1]) == 3
+    assert got == port.predict_clips(pcm[:3])
+    assert got == ref.predict_clips_stream(chunks())
+
+
 def test_predict_clips_stream_raises_the_iterators_exception(port, pcm):
     def failing():
         yield pcm[:3]

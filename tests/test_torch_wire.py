@@ -322,6 +322,176 @@ def test_adpcm_kernel_decomposition_bitwise_equal_to_sed_tpu(bits, chain):
             buf, samples, bits, fn)), _bits(want))
 
 
+ADPCM_RUN = 8                        # csrc/adpcm_decode.cu: kRun
+ADPCM_STAGE_BYTES = 8 * 256 + 32     # kStageBytes
+
+
+def _skew(j):
+    """The kernel's staged word of sample j (``skew``)."""
+    return j + (j >> 5)
+
+
+def _index_step(bits: int, c: int) -> int:
+    """The kernel's index-table entry computed from the code's bits
+    (``index_step``)."""
+    if bits == 4:
+        return max(2 * (c & 7) - 7, -1) + ((c >> 2) & 1)
+    if bits == 3:
+        return min(max(2 * (c & 3) - 3, -1), (c & 3) - 1)
+    return 3 * (c & 1) - 1
+
+
+def _table_entry(bits: int, idx: int, c: int) -> int:
+    """The kernel's decode-table entry (``table_entry``): the signed diff
+    of code c at step index idx times 2^14, plus the next index's row
+    offset, the index times 2^(bits + 2)."""
+    step = int(audio_io.IMA_STEP_TABLE[idx])
+    s = step >> (bits - 1)
+    for m in range(bits - 2, -1, -1):
+        if c & (1 << m):
+            s += step >> (bits - 2 - m)
+    if c & (1 << (bits - 1)):
+        s = -s
+    return s * 2 ** 14 + (min(max(idx + _index_step(bits, c), 0), 88)
+                          << (bits + 2))
+
+
+def _group_entry(bits: int, f: int) -> int:
+    """The kernel's group composite (``make_table``'s ``g``): the
+    step-index transform (a, l, u) of the 2 (4 and 3 bits) or 4 (2 bits)
+    codes whose bits are f, in stream order, packed a << 16 | u << 8 | l.
+    """
+    n = 4 if bits == 2 else 2
+    a, lo, hi = 0, 0, 88
+    for i in range(n):
+        c = ((f >> (4 * i)) & 15 if bits == 4
+             else (f >> (n * bits - bits * (i + 1))) & ((1 << bits) - 1))
+        d = _index_step(bits, c)
+        a, lo, hi = a + d, min(max(lo + d, 0), 88), min(max(hi + d, 0), 88)
+    return a * 65536 + (hi << 8) + lo
+
+
+def _adpcm_kernel_dataflow(buf: np.ndarray, samples: int, bits: int,
+                           start: int) -> np.ndarray:
+    """``csrc/adpcm_decode.cu``'s data path for a (rows, width) wire at a
+    byte address ``start`` mod 16: each run of up to 8 ADPCM blocks of a
+    clip fetched into a stage as its unaligned head, its 16-byte-aligned
+    interior (the bulk copy) and its tail; each block decoded from the
+    stage by the warp-scan emulation; the samples staged at ``_skew``
+    words from the run's output element rounded down to 4, then stored as
+    a scalar head, float4 groups (4 consecutive staged words each) and a
+    scalar tail.  Asserts the
+    alignments, that every wire byte of a block is fetched once and
+    nothing outside the tensor, and that every output element is stored
+    once."""
+    rows, width = buf.shape
+    spb = audio_io.adpcm_n_samples_per_block(bits)
+    pad = audio_io.ADPCM_N_PAD[bits]
+    nbl = (width - pad) // audio_io.ADPCM_BLOCK_ALIGN
+    rpc = -(-nbl // ADPCM_RUN)
+    mem = np.zeros(start + buf.size + 64, np.uint8)
+    mem[start:start + buf.size] = buf.reshape(-1)
+    fetched = np.zeros(mem.size, np.int64)
+    out = np.full(rows * samples, np.nan, np.float32)
+    stored = np.zeros(rows * samples, np.int64)
+    words = _skew(3 + ADPCM_RUN * spb + 3) + 1
+    for q in range(rows * rpc):
+        clip, r = divmod(q, rpc)
+        b0 = r * ADPCM_RUN
+        blocks = min(ADPCM_RUN, nbl - b0)
+        src = start + clip * width + b0 * 256
+        lead = src & 15
+        head = (16 - lead) & 15
+        nbytes = blocks * 256
+        body = (nbytes - head) & ~15
+        tail = nbytes - head - body
+        assert body > 0 and tail < 16 and (src + head) % 16 == 0
+        assert (lead + head) % 16 == 0 and lead + nbytes + 4 <= \
+            ADPCM_STAGE_BYTES
+        stage = np.zeros(ADPCM_STAGE_BYTES, np.uint8)
+        for lo, n in ((src, head), (src + head, body),
+                      (src + head + body, tail)):
+            stage[lead + lo - src:lead + lo - src + n] = mem[lo:lo + n]
+            fetched[lo:lo + n] += 1
+        blk = stage[lead:lead + nbytes].reshape(blocks, 256)
+        dec = _adpcm_kernel_emulation(np.pad(blk, ((0, 0), (0, pad))), spb,
+                                      bits, _warp_scan_chain)
+        o0 = clip * samples + b0 * spb
+        n_out = max(0, min(blocks * spb, samples - b0 * spb))
+        smp = np.full(words, np.nan, np.float32)
+        smp[_skew((o0 & 3) + np.arange(blocks * spb))] = dec.reshape(-1)
+        base, end = o0 & ~3, o0 + n_out
+        e0, e1 = (o0 + 3) & ~3, end & ~3
+        pieces = [(o0, min(e0, end))]
+        if end > e0:
+            pieces += [(e0, e1), (e1, end)]
+            groups = np.arange(e0, e1, 4) - base
+            assert (_skew(groups + 3) == _skew(groups) + 3).all()
+        assert pieces[0][1] - o0 < 4 and pieces[-1][1] - pieces[-1][0] < 4
+        for lo, hi in pieces:
+            e = np.arange(lo, hi)
+            out[e] = smp[_skew(e - base)]
+            stored[e] += 1
+    blocks_bytes = np.zeros(mem.size, bool)
+    blocks_bytes[start:start + buf.size] = np.pad(
+        np.ones((rows, nbl * 256), bool), ((0, 0), (0, width - nbl * 256))
+    ).reshape(-1)
+    assert (fetched[blocks_bytes] == 1).all()
+    assert not fetched[~blocks_bytes].any()
+    assert (stored == 1).all()
+    return out.reshape(rows, samples)
+
+
+@pytest.mark.parametrize('start', [0, 1, 7])
+@ADPCM_BITS
+def test_adpcm_kernel_dataflow_bitwise_equal_to_sed_tpu(bits, start):
+    """The kernel's runs, stages and stores emulated on a wire at byte
+    address ``start`` mod 16, at 30000 samples (every width ends a row
+    with a part run of 4, 5 or 6 blocks), on encodings and on random
+    bytes: bitwise equal to sed_tpu's JAX decode.  The index-table
+    entries the kernel computes from the code's bits equal the table, its
+    group composites equal their codes' steps applied one by one, and
+    its decode table's entries give the signed diff (an arithmetic shift
+    right by 14) and the next index's row offset (the low 14 bits) as the
+    plain decode computes them."""
+    steps, itab = wire._adpcm_tables(bits, torch.device('cpu'))
+    codes = torch.arange(1 << bits)
+    for c in range(1 << bits):
+        assert _index_step(bits, c) == itab[c]
+    step = steps[:, None]                                # (89, 1)
+    diff = step >> (bits - 1)
+    for k in range(bits - 2, -1, -1):
+        diff = diff + torch.where((codes & (1 << k)) != 0,
+                                  step >> (bits - 2 - k), 0)
+    signed = torch.where((codes & (1 << (bits - 1))) != 0, -diff, diff)
+    nxt = (torch.arange(89)[:, None] + itab[codes]).clamp(0, 88)
+    entries = torch.tensor([[_table_entry(bits, i, c)
+                             for c in range(1 << bits)] for i in range(89)])
+    assert torch.equal(entries >> 14, signed)
+    assert torch.equal(entries & (2 ** 14 - 1), nxt << (bits + 2))
+    # a group composite applied to every start index is the group's codes
+    # applied one by one (the plain decode's chain)
+    n = 4 if bits == 2 else 2
+    for f in range(1 << (n * bits)):
+        e = _group_entry(bits, f)
+        ga, gu, gl = e >> 16, (e >> 8) & 255, e & 255
+        cs = ([(f >> (4 * i)) & 15 for i in range(n)] if bits == 4 else
+              [(f >> (n * bits - bits * (i + 1))) & ((1 << bits) - 1)
+               for i in range(n)])
+        x = torch.arange(89)
+        for c in cs:
+            x = (x + itab[c]).clamp(0, 88)
+        assert torch.equal(x, (torch.arange(89) + ga).clamp(gl, gu))
+    samples = 30000
+    name = 'adpcm4' if bits == 4 else f'adpcm{bits}'
+    buf = np.concatenate([ENCODERS[name][0](_signals(samples)[:2]),
+                          _random_adpcm(bits, samples, 2, seed=30 + bits)])
+    assert (audio_io.adpcm_n_bytes(samples, bits) - audio_io.ADPCM_N_PAD[
+        bits]) // 256 % ADPCM_RUN
+    got = _adpcm_kernel_dataflow(buf, samples, bits, start)
+    assert np.array_equal(_bits(got), _bits(_jax_decode(buf, samples)))
+
+
 def test_dequant_v6_pool_random_words_bitwise_equal_to_sed_tpu():
     """What the v6 kernel must match on any words: a seeded random-word
     pool (every order and width, width-7 modes, NaN and inf scales),
