@@ -164,19 +164,46 @@ checks it against the same engine on the CPU.  Phases:
     events), the wrapper's host time, the decode's launches counted as
     the nodes of a CUDA graph that captures it (at most 2); which ADPCM
     encoder ran (native or numpy).
+19. learning through the training CLI's loop
+    (``main_strong.train_loop``, fed by
+    ``tools/torch_synthetic_learning_check.py``'s in-memory corpus in
+    place of the HDF5 files): (a) the 96/96/24/24-clip corpus of
+    ``tools/make_bench_checkpoint.py``; (c) ``tools/bench_checkpoint.npz``
+    (``sed_tpu``'s trained model) on its 24 test clips through the
+    ``Evaluator`` on the card and the CPU (ER and F1 equal); (b)
+    Cnn_9layers_Gru_FrameAtt trained in fp32 with
+    ``tools/torch_make_bench_checkpoint.py``'s settings: ``sed_tpu``'s
+    flags and its ``PRNGKey(0)`` initialisation (drawn in numpy by
+    ``compat/flax_init.py``), 801 iterations, evaluated every 200
+    (steps/s, train clips/s, the walls, peak memory, the trajectory,
+    finite losses, 2 log-mel launches a step plus the evaluations'); (d)
+    its best checkpoint held to (c) on the test split: ER within
+    ``LEARN_ER_MARGIN`` above, F1 within ``LEARN_F1_MARGIN`` and
+    framewise mAP within ``LEARN_MAP_MARGIN`` below; (h) that checkpoint
+    exported by ``save_variables_npz``, served by ``predict_clips`` on the
+    64 clips on the card and the CPU (events and XML identical), its test
+    ER and F1 within ``EXPORT_TOL`` of the in-memory best's; (e) the same
+    run in bf16 (dynamic loss scale) under (d)'s gate; (b') the GRU in
+    fp32 from the port's own fresh draw (finite losses, the last 100
+    iterations' mean below the first 100's; its test metrics printed
+    beside the gate's); (f) Cnn_9layers_Conformer_FrameAtt from its
+    fresh draw the same way, then served trained
+    (clips/s, events a clip); (g) 20 iterations of the GRU on the adpcm4
+    wire (the ADPCM kernel's count must rise).
 
 ``python3 chip_smoke.py --families-only`` runs phases 1, 2 and 14 alone,
 ``--gamma-only`` phases 1, 2 and 15, ``--bf16-only`` phases 1, 2 and 16,
 ``--parallel-only`` phases 1, 2 and 17 (the last two may be given
-together), ``--resident-only`` phases 1, 2 and 18, ``--adpcm-only``
+together), ``--resident-only`` phases 1, 2 and 18, ``--learning-only``
+phases 1, 2 and 19, ``--adpcm-only``
 phases 1, 2 and phase 10's ADPCM kernel checks and times
 (``adpcm_kernel_checks``), and none prints a result line (for work on
 that phase).
 
-Phases 4, 7, 8, 9, 10, 11, 12, 13, 14, 16, 17 and 18 drive the main
+Phases 4, 7, 8, 9, 10, 11, 12, 13, 14, 16, 17, 18 and 19 drive the main
 paths: each sets the kernel's launch count to 0 just before and reads it
-just after, and fails if the kernel was not launched; phases 10 and 18
-do the same for the ADPCM kernel on the adpcm4 paths, and phase 18 for
+just after, and fails if the kernel was not launched; phases 10, 18 and
+19 do the same for the ADPCM kernel on the adpcm4 paths, and phase 18 for
 the v6 decode kernel on the v6 paths.  Phase 15 drives the
 gamma path the same way and fails if log-mel was launched there: that
 path has no kernel, its model takes packed features.  The script imports
@@ -2067,6 +2094,212 @@ def resident_phase(card: str, dev, cfg, clips, gpu, cpu) -> tuple:
         'library_ms': None}
 
 
+# Phase 19's gate, fixed before the first run on the card: on the test
+# split, the best checkpoint of an 801-iteration run of the bench model's
+# training against ``tools/bench_checkpoint.npz`` (which ``sed_tpu``
+# trained with the same flags on the same corpus from the same
+# initialisation) in the same run
+LEARN_ER_MARGIN = 0.10           # ER <= bench ER + 0.10
+LEARN_F1_MARGIN = 0.07           # F1 >= bench F1 - 0.07
+LEARN_MAP_MARGIN = 0.05          # framewise mAP >= bench's - 0.05
+EXPORT_TOL = 0.01                # exported (float16) ER, F1 against best
+WIRE_ITERATIONS = 20
+
+
+def learning_phase(card: str, dev, cfg, pcm) -> tuple:
+    """Phase 19; returns the log-mel and the ADPCM kernel's launches of
+    its training, evaluation and serving runs."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, os.path.join(REPO, 'tools'))
+    import torch_make_bench_checkpoint as make_ckpt
+    import torch_synthetic_learning_check as learning
+    from sed_tpu_torch.cli import main_strong
+    from sed_tpu_torch.compat.from_flax import load_checkpoint, load_npz
+    from sed_tpu_torch.data.dataset import DataLoader, TestSampler
+    from sed_tpu_torch.eval.evaluator import Evaluator
+    from sed_tpu_torch.ops import wire as wire_ops
+    from sed_tpu_torch.ops.logmel_kernel import fused_logmel
+    from sed_tpu_torch.serve.engine import SedInferenceEngine
+    gru = 'Cnn_9layers_Gru_FrameAtt'
+    t19 = time.perf_counter()
+    launches = {'logmel': 0, 'adpcm': 0}
+
+    def counted(fn, *args, **kwargs):
+        """``fn``'s result, its launches of both kernels added up."""
+        fused_logmel.launches = 0
+        wire_ops._adpcm_decode.launches = 0
+        out = fn(*args, **kwargs)
+        n = fused_logmel.launches, wire_ops._adpcm_decode.launches
+        launches['logmel'] += n[0]
+        launches['adpcm'] += n[1]
+        return out, n
+
+    # -- (a) the corpus in memory --------------------------------------------
+    corpus = learning.build_corpus(make_ckpt.SIZES)
+    print(f'[19] (a) corpus of {make_ckpt.SIZES} clips of 10 s (the 96/96/'
+          f'24/24 of tools/make_bench_checkpoint.py) built in memory in '
+          f'{corpus.seconds:.2f} s')
+    tmp = tempfile.TemporaryDirectory()
+    learning.write_references(corpus, tmp.name)
+    test_csv = os.path.join(tmp.name, 'metadata',
+                            'groundtruth_strong_label_testing_set.csv')
+
+    def evaluate(model, device, tag):
+        """The model's test-split summary through the Evaluator."""
+        loader = DataLoader(learning.MemoryDataset(corpus.splits),
+                            TestSampler('testing', 4, audios_num=len(
+                                corpus.splits['testing']['audio_name'])))
+        stats, _ = Evaluator(model, device).evaluate(
+            loader, test_csv, os.path.join(tmp.name, f'{tag}.tsv'),
+            cfg.frames_per_second)
+        return learning.summarize(stats)
+
+    def fmt(m):
+        return (f'ER {m["er"]!r} F1 {m["f1"]!r} framewise mAP '
+                f'{m["framewise_map"]!r} clipwise mAP {m["clipwise_map"]!r}')
+
+    # -- (c) sed_tpu's trained checkpoint on the test split ------------------
+    ckpt = os.path.join(REPO, 'tools', 'bench_checkpoint.npz')
+    bench, n = counted(evaluate, load_npz(ckpt, gru, cfg, dev), dev,
+                       'bench_gpu')
+    bench_cpu = evaluate(load_npz(ckpt, gru, cfg, 'cpu'), 'cpu', 'bench_cpu')
+    print(f'[19] (c) tools/bench_checkpoint.npz on the '
+          f'{len(corpus.splits["testing"]["audio_name"])} test clips, '
+          f'Evaluator on {dev} (log-mel launches {n[0]}): {fmt(bench)}; on '
+          f'the CPU: {fmt(bench_cpu)}')
+    assert n[0] > 0, 'the Evaluator did not launch the log-mel kernel'
+    assert (bench['er'], bench['f1']) == (bench_cpu['er'], bench_cpu['f1']), \
+        'ER / F1 of the bench checkpoint differ between the card and the CPU'
+
+    def train(tag, extra):
+        """A run of the CLI's loop on the corpus, its report printed."""
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        run, n = counted(learning.train, corpus, extra,
+                         os.path.join(tmp.name, re.sub(r'\W+', '_', tag)),
+                         verbose=False)
+        train_s = run.wall_s - run.eval_s
+        evals = len(run.evaluations)
+        weak_bs, strong_bs = main_strong.batch_sizes(run.args)
+        flags = ' '.join(f if not f.endswith('.npz') else
+                         os.path.basename(f) for f in extra)
+        print(f'[19] {tag}: {run.steps} iterations on {card} through '
+              f'main_strong.train_loop ({flags}): '
+              f'{run.steps / train_s:.3f} steps/s, '
+              f'{run.steps * (weak_bs + strong_bs) / train_s:.1f} train '
+              f'clips/s ({weak_bs} weak + {strong_bs} strong clips of 10 s '
+              f'a step), training {train_s:.2f} s, '
+              f'{evals} evaluations {run.eval_s:.2f} s, wall '
+              f'{run.wall_s:.2f} s, peak memory '
+              f'{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; '
+              f'log-mel launches {n[0]}, ADPCM launches {n[1]}')
+        at = sorted({*range(0, run.steps, 100), run.steps - 1})
+        print(f'[19] {tag}: loss at ' + ', '.join(
+            f'{i}: {run.losses[i]:.4f}' for i in at))
+        for e in run.evaluations:
+            print(f'[19] {tag}: iteration {e["iteration"]}: valid '
+                  f'{fmt(e["valid"])}; test {fmt(e["test"])}')
+        assert np.isfinite(run.losses).all(), f'{tag}: a loss is not finite'
+        # an evaluation forwards the validation and the test split
+        batches = sum(-(-len(corpus.splits[k]['audio_name'])
+                        // run.args.batch_size)
+                      for k in ('strong_validation', 'testing'))
+        assert n[0] >= 2 * run.steps + evals * batches, \
+            f'{tag}: {n[0]} log-mel launches for {run.steps} steps'
+        return run, n
+
+    def falls(tag, run):
+        """The mean loss of the last 100 iterations below the first
+        100's."""
+        k = min(100, run.steps // 2)
+        first = float(run.losses[:k].mean())
+        last = float(run.losses[-k:].mean())
+        print(f'[19] {tag}: mean loss of the first {k} iterations '
+              f'{first!r}, of the last {k} {last!r}; best iteration '
+              f'{run.best_iteration}, test {fmt(run.best("test"))}')
+        assert last < first, f'{tag}: the loss did not fall'
+
+    def gate(tag, run):
+        best = run.best('test')
+        print(f'[19] (d) {tag}: best iteration {run.best_iteration}, test '
+              f'{fmt(best)}; bench checkpoint {fmt(bench)}; gate ER <= '
+              f'{bench["er"] + LEARN_ER_MARGIN:.4f}, F1 >= '
+              f'{bench["f1"] - LEARN_F1_MARGIN:.4f}, framewise mAP >= '
+              f'{bench["framewise_map"] - LEARN_MAP_MARGIN:.4f}')
+        assert best['er'] <= bench['er'] + LEARN_ER_MARGIN, f'{tag}: ER'
+        assert best['f1'] >= bench['f1'] - LEARN_F1_MARGIN, f'{tag}: F1'
+        assert best['framewise_map'] >= \
+            bench['framewise_map'] - LEARN_MAP_MARGIN, f'{tag}: mAP'
+
+    # -- (b) the bench model in fp32 from sed_tpu's initialisation, (d) ----
+    t0 = time.perf_counter()
+    bench_flags = make_ckpt.train_flags(tmp.name)
+    print(f'[19] (b) sed_tpu\'s PRNGKey(0) initialisation of {gru} drawn in '
+          f'numpy (compat/flax_init.py) in {time.perf_counter() - t0:.2f} s')
+    fp32, _ = train('(b) GRU fp32', bench_flags)
+    gate('GRU fp32', fp32)
+
+    # -- (h) its best checkpoint exported, served on the card and the CPU ---
+    out = make_ckpt.export(fp32, os.path.join(tmp.name, 'gru.npz'))
+    gpu = SedInferenceEngine(load_npz(out, gru, cfg, dev), cfg, dev,
+                             batch_size=32)
+    cpu = SedInferenceEngine(load_npz(out, gru, cfg, 'cpu'), cfg, 'cpu',
+                             batch_size=32)
+    (ev_gpu, xml_gpu), n = counted(gpu.predict_clips, pcm)
+    ev_cpu, xml_cpu = cpu.predict_clips(pcm)
+    assert n[0] > 0, 'predict_clips did not launch the log-mel kernel'
+    assert ev_gpu == ev_cpu and xml_gpu == xml_cpu, \
+        'the exported checkpoint serves differently on the card and the CPU'
+    exported, _ = counted(evaluate, gpu.model, dev, 'exported')
+    best = fp32.best('test')
+    print(f'[19] (h) best checkpoint exported by save_variables_npz '
+          f'({os.path.getsize(out) / 1e6:.2f} MB): predict_clips of '
+          f'{len(pcm)} clips on {dev}, {sum(map(len, ev_gpu))} events, '
+          f'events and XML identical to the CPU; test {fmt(exported)} '
+          f'against the in-memory best {fmt(best)}')
+    assert abs(exported['er'] - best['er']) <= EXPORT_TOL and \
+        abs(exported['f1'] - best['f1']) <= EXPORT_TOL, \
+        'the exported checkpoint scores apart from the in-memory best'
+    del gpu, cpu
+
+    # -- (e) bf16 with the dynamic loss scale, under the same gate -----------
+    bf16, _ = train('(e) GRU bf16', [*bench_flags, '--compute_dtype', 'bf16'])
+    print(f'[19] (e) skipped steps {bf16.grads_finite.count(False)}, final '
+          f'loss scale {bf16.loss_scales[-1]!r}')
+    gate('GRU bf16', bf16)
+
+    # -- (b') the GRU from the port's own fresh draw: finite, falling -------
+    steps = ['--stop_iteration', str(make_ckpt.STOP_ITERATION)]
+    fresh, _ = train("(b') GRU fp32, fresh init", steps)
+    falls("(b') GRU fp32, fresh init", fresh)
+
+    # -- (f) the Conformer: finite, falling losses; served trained ----------
+    conformer = 'Cnn_9layers_Conformer_FrameAtt'
+    conf, _ = train('(f) Conformer', [*steps, '--model_type', conformer])
+    falls('(f) Conformer', conf)
+    engine = SedInferenceEngine(load_checkpoint(
+        conf.best_checkpoint, conformer, cfg, dev), cfg, dev, batch_size=32)
+    (ev, _), n = counted(engine.predict_clips, pcm)
+    assert n[0] > 0, 'predict_clips did not launch the log-mel kernel'
+    rates, _ = clips_per_s(engine, np.concatenate([pcm] * 8))
+    print(f'[19] (f) trained Conformer predict_clips on {card}: '
+          f'{sum(map(len, ev)) / len(pcm):.3f} events a clip on the '
+          f'{len(pcm)} clips, {[round(r, 1) for r in rates]} clips/s over '
+          f'{8 * len(pcm)} clips (3 runs)')
+    del engine
+
+    # -- (g) the GRU on the adpcm4 wire: the ADPCM kernel on the path --------
+    _, n = train('(g) GRU adpcm4', ['--stop_iteration', str(WIRE_ITERATIONS),
+                                    '--train_wire', 'adpcm4'])
+    assert n[1] > 0, 'the adpcm4 wire did not launch the ADPCM kernel'
+    tmp.cleanup()
+    print(f'[19] learning phase: log-mel launches {launches["logmel"]}, '
+          f'ADPCM launches {launches["adpcm"]}; '
+          f'{time.perf_counter() - t19:.1f} s')
+    return launches['logmel'], launches['adpcm']
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2175,6 +2408,14 @@ def main() -> None:
                        gpu, cpu)
         print(f'[18] resident phase done in {time.perf_counter() - t18:.1f} '
               's; phases 3-17 were not run: no result')
+        return
+
+    if '--learning-only' in sys.argv[1:]:
+        cfg = config.AUDIO_16K
+        pcm = (np.clip(make_clips(64, cfg.sample_rate, seconds=5, seed=0),
+                       -1, 1) * 32767).astype(np.int16)
+        learning_phase(card, dev, cfg, pcm)
+        print('[19] phases 3-18 were not run: no result')
         return
 
     if '--families-only' in sys.argv[1:]:
@@ -2561,6 +2802,10 @@ def main() -> None:
                                                          clips, gpu, cpu)
     print(f'[18] resident phase done in {time.perf_counter() - t18:.1f} s')
 
+    # -- 19. the training CLI's loop: learning against sed_tpu's checkpoint --
+    torch.cuda.empty_cache()
+    n_launch19, a_launches19 = learning_phase(card, dev, cfg, pcm)
+
     blocked = [m for m in sys.modules
                if m.split('.')[0] in ('sed_tpu', 'jax', 'jaxlib', 'flax',
                                       'optax', 'orbax')]
@@ -2573,7 +2818,8 @@ def main() -> None:
         'replaces': 'sed_tpu/ops/logmel_kernel.py:48',
         'launches': (launches + t_launches + w_launches + e_launches
                      + v_launches + s_launches + r_launches + n_launch13
-                     + n_launch14 + n_launch16 + n_launch17 + n_launch18),
+                     + n_launch14 + n_launch16 + n_launch17 + n_launch18
+                     + n_launch19),
         'max_abs_err': max_err,
         'ms': kernel_ms, 'plain_ms': plain_ms,
         'bound_ms': bound[0], 'bound_by': bound[1],
@@ -2587,7 +2833,8 @@ def main() -> None:
         'name': 'adpcm_decode', 'route': 'cuda',
         'source': 'sed_tpu_torch/csrc/adpcm_decode.cu',
         'replaces': 'sed_tpu/ops/wire.py:335',
-        'launches': a_launches + a_launches18, 'max_abs_err': adpcm_err,
+        'launches': a_launches + a_launches18 + a_launches19,
+        'max_abs_err': adpcm_err,
         'ms': adpcm_times[4, 32][0], 'plain_ms': adpcm_times[4, 32][1],
         'bound_ms': adpcm_times[4, 32][2][0],
         'bound_by': adpcm_times[4, 32][2][1],

@@ -18,7 +18,9 @@ take both, the windowed modes feed waveforms and take log-mel only):
   and ``testing``, and the best checkpoint by validation framewise mAP
   and error rate saved as ``iter_<N>.pth`` + ``BEST`` in the workspace's
   checkpoint directory; ``--resume_iteration N`` restarts from the
-  checkpoint at N.  ``--compute_dtype bf16`` runs the conv stack in
+  checkpoint at N.  ``train_loop`` is the loop on loaders it is given
+  (``tools/torch_synthetic_learning_check.py`` feeds it from memory).
+  ``--compute_dtype bf16`` runs the conv stack in
   bf16 with the dynamic loss-scaled step (parameters, optimizer state
   and ``.pth`` files stay float32).  Under ``torchrun --nproc_per_node
   N`` each process trains on ``cuda:LOCAL_RANK`` (gloo processes with
@@ -84,15 +86,104 @@ def _setup(args):
     return cfg, ws, model, sed_params
 
 
+def batch_sizes(args):
+    """(weak, strong) batch sizes: the reference's INCLUDING its
+    conditional precedence (``main_strong.py:229-236``): with mixup the
+    weak stream draws (bs*3)*2; without mixup the x3 weak multiplier is
+    dropped too."""
+    if 'mixup' in args.augmentation:
+        return (args.batch_size * 3) * 2, args.batch_size * 2
+    return args.batch_size, args.batch_size
+
+
+def train_setup(args):
+    """Joins torchrun's process group (a no-op alone), checks that the
+    processes share the batches, and runs ``common.setup_training``;
+    returns (device, cfg, ws).  What ``train`` does before it reads
+    data."""
+    from sed_tpu_torch.parallel import distributed
+    weak_bs, strong_bs = batch_sizes(args)
+    # one process per card under torchrun (data parallel); no-op alone
+    distributed.maybe_initialize(args.device)
+    common.check_world_size(distributed.world_size(), weak_bs, strong_bs,
+                            'mixup' in args.augmentation)
+    return common.setup_training(
+        args, distributed.local_device(args.device),
+        log_to_file=distributed.rank() == 0)
+
+
+def train_loaders(args, paths: dict, dataset=None, rows=None):
+    """The loop's loaders over the packed splits ``paths`` (keys
+    ``weak_training``, ``strong_training``, ``strong_fsd50k`` under
+    ``--fsd50k``, ``strong_validation``, ``testing``): (weak loader,
+    [strong loaders], valid loader, test loader).  ``dataset(**kwargs)``
+    makes the datasets (``AudiosetDataset``, which reads the HDF5 files,
+    by default); ``rows`` maps a path to its row count, so that the
+    samplers need not open the file."""
+    from sed_tpu_torch.data.dataset import (AudiosetDataset, DataLoader,
+                                            TestSampler, TrainSampler)
+    from sed_tpu_torch.parallel import distributed
+    dataset = dataset or AudiosetDataset
+    rows = rows or {}
+    weak_bs, strong_bs = batch_sizes(args)
+    # train streams ship int16 (or --train_wire) rows, decoded on the
+    # device by the step; the eval loaders keep the float path
+    train_dataset = dataset(dequantize=False, wire=args.train_wire)
+    eval_dataset = dataset()
+
+    def _train_loader(split, bs):
+        # every process draws the same seeded global stream and loads
+        # only its share
+        path = paths[split]
+        sampler = distributed.HostShardedSampler(
+            TrainSampler(path, bs, audios_num=rows.get(path)),
+            even_shares='mixup' in args.augmentation)
+        return DataLoader(train_dataset, sampler,
+                          num_workers=args.num_workers)
+
+    def _eval_loader(split):
+        path = paths[split]
+        return DataLoader(eval_dataset, TestSampler(
+            path, args.batch_size, audios_num=rows.get(path)))
+
+    strong = ['strong_training'] + (['strong_fsd50k'] if args.fsd50k
+                                    else [])
+    return (_train_loader('weak_training', weak_bs),
+            [_train_loader(split, strong_bs) for split in strong],
+            _eval_loader('strong_validation'), _eval_loader('testing'))
+
+
 def train(args):
-    """Joint weak+strong training (``sed_tpu/cli/main_strong.py:39-276``)."""
+    """Joint weak+strong training (``sed_tpu/cli/main_strong.py:39-276``)
+    on the workspace's packed HDF5 splits."""
+    device, cfg, ws = train_setup(args)
+    splits = ('weak_training', 'strong_training', 'strong_validation',
+              'testing') + (('strong_fsd50k',) if args.fsd50k else ())
+    loaders = train_loaders(
+        args, {split: common.hdf5_path(args, cfg, split) for split in splits})
+    return train_loop(args, device, cfg, ws, *loaders,
+                      common.reference_csv_paths(args))
+
+
+def train_loop(args, device, cfg, ws, weak_loader, strong_loaders,
+               valid_loader, test_loader, refs: dict, on_step=None,
+               on_eval=None):
+    """The training loop of ``train`` from the model on: the train state
+    (fresh, ``--checkpoint`` or ``--resume_iteration``), the joint step
+    on a weak batch and one batch of each strong loader an iteration,
+    the evaluation on ``valid_loader`` and ``test_loader`` against the
+    reference CSVs ``refs['valid']`` and ``refs['test']`` every
+    ``--eval_interval`` iterations, the best checkpoint and the
+    statistics.  ``on_step(iteration, metrics)`` is called after each
+    step (the metrics as the step returns them, on the device) and
+    ``on_eval(iteration, {'valid': statistics, 'test': statistics},
+    train_s, eval_s)`` after each evaluation, when given.  Returns the
+    train state."""
     import torch
     import torch.distributed as dist
     from sed_tpu_torch import losses as losses_lib
     from sed_tpu_torch.augment.functional import MixupGenerator
-    from sed_tpu_torch.data.dataset import (AudiosetDataset, DataLoader,
-                                            TestSampler, TrainSampler,
-                                            cycle_iteration)
+    from sed_tpu_torch.data.dataset import cycle_iteration
     from sed_tpu_torch.eval.evaluator import Evaluator
     from sed_tpu_torch.parallel import distributed
     from sed_tpu_torch.train.checkpoint import save_best_checkpoint
@@ -103,46 +194,10 @@ def train(args):
     mixup = 'mixup' in args.augmentation
     timeshift = 'timeshift' in args.augmentation
     spec_augment = 'specaugment' in args.augmentation
-    # the reference's batch sizes INCLUDING its conditional precedence
-    # (``main_strong.py:229-236``): with mixup the weak stream draws
-    # (bs*3)*2; without mixup the x3 weak multiplier is dropped too
-    weak_bs = (args.batch_size * 3) * 2 if mixup else args.batch_size
-    strong_bs = args.batch_size * 2 if mixup else args.batch_size
-
-    # one process per card under torchrun (data parallel); no-op alone
-    parallel = distributed.maybe_initialize(args.device)
+    parallel = dist.is_available() and dist.is_initialized()
     world, rank = distributed.world_size(), distributed.rank()
-    common.check_world_size(world, weak_bs, strong_bs, mixup)
-    device, cfg, ws = common.setup_training(
-        args, distributed.local_device(args.device), log_to_file=rank == 0)
-
-    refs = common.reference_csv_paths(args)
-    weak_h5 = common.hdf5_path(args, cfg, 'weak_training')
-    strong_h5 = common.hdf5_path(args, cfg, 'strong_training')
-    valid_h5 = common.hdf5_path(args, cfg, 'strong_validation')
-    test_h5 = common.hdf5_path(args, cfg, 'testing')
-
-    # train streams ship int16 (or --train_wire) rows, decoded on the
-    # device by the step; the eval loaders keep the float path
-    train_dataset = AudiosetDataset(dequantize=False, wire=args.train_wire)
-    dataset = AudiosetDataset()
-
-    def _train_loader(h5, bs):
-        # every process draws the same seeded global stream and loads
-        # only its share
-        sampler = distributed.HostShardedSampler(TrainSampler(h5, bs),
-                                                 even_shares=mixup)
-        return DataLoader(train_dataset, sampler,
-                          num_workers=args.num_workers)
-
-    weak_iter = cycle_iteration(_train_loader(weak_h5, weak_bs))
-    strong_iters = [cycle_iteration(_train_loader(strong_h5, strong_bs))]
-    if args.fsd50k:
-        strong_iters.append(cycle_iteration(_train_loader(
-            common.hdf5_path(args, cfg, 'strong_fsd50k'), strong_bs)))
-    valid_loader = DataLoader(dataset, TestSampler(valid_h5,
-                                                   args.batch_size))
-    test_loader = DataLoader(dataset, TestSampler(test_h5, args.batch_size))
+    weak_iter = cycle_iteration(weak_loader)
+    strong_iters = [cycle_iteration(loader) for loader in strong_loaders]
 
     state = common.train_state(args, cfg, device)
     ckpt_dir = ws.checkpoint_path(args.feature_type, cfg.name, create=True)
@@ -211,6 +266,7 @@ def train(args):
             logging.info('------------------------------------')
             logging.info('Iteration: %d', iteration)
             train_fin_time = time.time()
+            evaluated = {}
             for data_type, loader, ref_csv in [
                     ('valid', valid_loader, refs['valid']),
                     ('test', test_loader, refs['test'])]:
@@ -226,6 +282,7 @@ def train(args):
                     statistics['sed_metrics']['overall']['error_rate'])
                 statistics_container.append(data_type, iteration,
                                             statistics)
+                evaluated[data_type] = statistics
                 if data_type == 'valid':
                     fmap = np.nanmean(statistics['framewise_ap'])
                     er = statistics['sed_metrics']['overall'][
@@ -241,9 +298,12 @@ def train(args):
                 statistics_container.dump()
             if parallel:
                 dist.barrier()
+            train_s = train_fin_time - train_bgn_time
+            eval_s = time.time() - train_fin_time
             logging.info('Train time: %.3f s, validate time: %.3f s',
-                         train_fin_time - train_bgn_time,
-                         time.time() - train_fin_time)
+                         train_s, eval_s)
+            if on_eval is not None:
+                on_eval(iteration, evaluated, train_s, eval_s)
             train_bgn_time = time.time()
 
         weak_batch, strong_batches = next(batch_iter)
@@ -252,6 +312,8 @@ def train(args):
                                            generator, scale_state)
         else:
             metrics = step_fn(weak_batch, strong_batches, generator)
+        if on_step is not None:
+            on_step(iteration, metrics)
         if iteration % 100 == 0:
             logging.info(
                 '%d iteration - weak: %.4f, strong: %.4f, total: %.4f%s',

@@ -15,6 +15,8 @@ The input is the JAX package's variables tree as nested numpy dicts
   (K, 1, C) -> ``Conv1d`` weight (C, 1, K); its ``pw1`` / ``pw2`` Dense
   kernels -> Linear; ``r_w_bias`` / ``r_r_bias`` verbatim.
 
+``variables_from_model`` maps a port model back onto a flax tree (what
+``utils/npz_ckpt.save_variables_npz`` writes).
 ``reference_state_dict`` writes a port ``state_dict`` in the reference's
 layout (what the port's trainer saves) and ``port_state_dict`` reads it
 back.  ``load_checkpoint`` also reads the reference's ``.pth`` checkpoints:
@@ -82,6 +84,50 @@ def state_dict_from_variables(variables: dict) -> Dict[str, torch.Tensor]:
                 state[key[:-len('running_mean')] + 'num_batches_tracked'] = \
                     torch.tensor(0, dtype=torch.long)
     return state
+
+
+_BN_BACK = {'weight': 'scale', 'bias': 'bias'}
+_STATS_BACK = {v: k for k, v in _STATS.items()}
+_GRU_BACK = {v: k for k, v in _GRU.items()}
+
+
+def flax_leaf(key: str, value: np.ndarray):
+    """(collection, flax path, leaf) for one port ``state_dict`` tensor:
+    the inverse of ``torch_key``."""
+    *mods, name = key.split('.')
+    if name in _STATS_BACK:
+        return 'batch_stats', (*mods, _STATS_BACK[name]), value
+    if mods == ['gru']:                           # gru.<name>[_reverse]
+        base = name.removesuffix('_reverse')
+        return 'params', ('gru', 'fw' if base == name else 'bw',
+                          _GRU_BACK[base]), value
+    if name == 'weight' and value.ndim >= 2:
+        if value.ndim == 4:                       # conv OIHW -> HWIO
+            return 'params', (*mods, 'kernel'), value.transpose(2, 3, 1, 0)
+        if value.ndim == 3:         # Conv1d (C, 1, K) -> depthwise (K, 1, C)
+            return 'params', (*mods, 'kernel'), value.transpose(2, 1, 0)
+        return 'params', (*mods, 'kernel'), value.T  # Linear -> Dense
+    return 'params', (*mods, _BN_BACK.get(name, name)), value
+
+
+def variables_from_model(model: torch.nn.Module) -> dict:
+    """A port model's flax variables tree (nested numpy float32 dicts):
+    the inverse of ``state_dict_from_variables``, what
+    ``utils/npz_ckpt.save_variables_npz`` writes and ``sed_tpu``
+    reads.  ``num_batches_tracked`` has no flax leaf."""
+    variables: dict = {}
+    for key, tensor in model.state_dict().items():
+        if key.endswith('num_batches_tracked'):
+            continue
+        collection, path, leaf = flax_leaf(
+            key, tensor.detach().to('cpu', torch.float32).numpy())
+        node = variables.setdefault(collection, {})
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        if path[-1] in node:
+            raise ValueError(f'two tensors map to {collection}/{path}')
+        node[path[-1]] = np.ascontiguousarray(leaf)
+    return variables
 
 
 # ---------------------------------------------------------------------------

@@ -169,6 +169,16 @@ class AudiosetDataset:
         self._tls = threading.local()
 
 
+def _rows(hdf5_path: str, audios_num: Optional[int]) -> int:
+    """The split's row count: ``audios_num`` when the caller gives it,
+    else read from the file."""
+    if audios_num is not None:
+        return int(audios_num)
+    import h5py
+    with h5py.File(hdf5_path, 'r') as hf:
+        return len(hf['audio_name'])
+
+
 class TrainSampler:
     """Infinite shuffled batch-meta stream, seed 1234, reproducing the
     reference's exact RNG stream (``data_generator.py:52-101``): each
@@ -176,16 +186,18 @@ class TrainSampler:
     (``audio_indexes[audio_indexes[pointer]]``), and a mid-batch
     reshuffle applies the NEW permutation to the OLD first index.
     Distributionally this is just a shuffle, but bit-level training
-    trajectories match the reference only with the same stream."""
+    trajectories match the reference only with the same stream.
+
+    ``audios_num`` gives the split's row count; without it the file is
+    opened to count them (the samplers read nothing else)."""
 
     def __init__(self, hdf5_path: str, batch_size: int,
-                 random_seed: int = 1234):
+                 random_seed: int = 1234,
+                 audios_num: Optional[int] = None):
         self.hdf5_path = hdf5_path
         self.batch_size = batch_size
         self.random_state = np.random.RandomState(random_seed)
-        import h5py
-        with h5py.File(hdf5_path, 'r') as hf:
-            self.audios_num = len(hf['audio_name'])
+        self.audios_num = _rows(hdf5_path, audios_num)
         self.audio_indexes = np.arange(self.audios_num)
         self.random_state.shuffle(self.audio_indexes)
         self.pointer = 0
@@ -210,12 +222,11 @@ class TestSampler:
 
     __test__ = False  # not a pytest class
 
-    def __init__(self, hdf5_path: str, batch_size: int):
+    def __init__(self, hdf5_path: str, batch_size: int,
+                 audios_num: Optional[int] = None):
         self.hdf5_path = hdf5_path
         self.batch_size = batch_size
-        import h5py
-        with h5py.File(hdf5_path, 'r') as hf:
-            self.audios_num = len(hf['audio_name'])
+        self.audios_num = _rows(hdf5_path, audios_num)
 
     def __iter__(self) -> Iterator[List[dict]]:
         for ptr in range(0, self.audios_num, self.batch_size):

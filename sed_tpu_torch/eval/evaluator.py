@@ -5,8 +5,8 @@ The forward runs under ``inference_mode`` on the evaluator's device, one
 batch of the loader at a time.  ``sed_tpu`` pads the ragged last batch
 to keep one jit entry; eval-mode BatchNorm works per sample, so here the
 batch runs as it comes, and the outputs are the same rows.  AP comes
-from ``eval/ap.py`` (which imports sklearn when ``evaluate`` runs) and
-the segment metrics from ``eval/segment_metrics.py``.
+from ``eval/ap.py`` (numpy, sklearn's values) and the segment metrics
+from ``eval/segment_metrics.py``.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from sed_tpu_torch import config
+from sed_tpu_torch.eval import ap as ap_metrics
 from sed_tpu_torch.eval import segment_metrics
 from sed_tpu_torch.post import events as post_events
 from sed_tpu_torch.ops import wire as wire_ops
@@ -72,7 +73,6 @@ class Evaluator:
                  submission_path: str, frames_per_second: int):
         """Returns (statistics, output_dict): clipwise AP, framewise AP,
         and sed_eval-style segment metrics from decoded events."""
-        from sed_tpu_torch.eval import ap as ap_metrics
         output_dict = self.forward(data_loader)
         statistics = {}
         statistics['clipwise_ap'] = ap_metrics.clipwise_average_precision(

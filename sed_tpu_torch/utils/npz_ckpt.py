@@ -5,14 +5,36 @@ exists for small repo-committable artifacts (the trained bench
 checkpoint) — float16-cast leaves, '/'-joined tree keys, one compressed
 file.
 
-A copy of the reader of ``sed_tpu/utils/npz_ckpt.py`` (the port writes
-no checkpoints): the port keeps its own host modules and imports nothing
-of the JAX package.
+A copy of ``sed_tpu/utils/npz_ckpt.py``: the port keeps its own host
+modules and imports nothing of the JAX package.  A port model's tree
+comes from ``compat/from_flax.variables_from_model``.
 """
 
 from __future__ import annotations
 
+from typing import Dict
+
 import numpy as np
+
+
+def _flatten(tree: dict, prefix: str = '') -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    for k, v in tree.items():
+        key = f'{prefix}/{k}' if prefix else str(k)
+        if isinstance(v, dict):
+            out.update(_flatten(v, key))
+        else:
+            out[key] = np.asarray(v)
+    return out
+
+
+def save_variables_npz(path: str, variables: dict,
+                       dtype=np.float16) -> None:
+    """Save a flax variables tree ({'params', 'batch_stats', ...})."""
+    flat = _flatten(variables)
+    cast = {k: (v.astype(dtype) if v.dtype == np.float32 else v)
+            for k, v in flat.items()}
+    np.savez_compressed(path, **cast)
 
 
 def load_variables_npz(path: str) -> dict:
