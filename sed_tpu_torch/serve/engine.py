@@ -50,7 +50,6 @@ import copy
 import os
 import queue
 import threading
-import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterable, List, Optional, Sequence, Tuple
 
@@ -64,6 +63,7 @@ from sed_tpu_torch.post import events as post_events
 from sed_tpu_torch.post import merge as post_merge
 from sed_tpu_torch.post import vad, xml_writer
 from sed_tpu_torch.ops import wire as wire_ops
+from sed_tpu_torch.utils.profiling import span
 
 
 def disable_tf32() -> None:
@@ -202,27 +202,14 @@ class SedInferenceEngine:
         self._forward(z)
         self._sync()
 
-    @torch.inference_mode()
-    def measure_forward_ms(self, iters: int = 8) -> float:
-        """Device ms per batched forward of float32 zeros: CUDA events
-        around ``iters`` forwards queued back to back after one warm-up
-        forward (on the CPU, the host clock around them)."""
-        wav = torch.zeros((self.batch_size, self.window_samples),
-                          device=self.device)
-        self.model(wav)
-        if self.device.type != 'cuda':
-            t0 = time.perf_counter()
-            for _ in range(iters):
-                self.model(wav)
-            return (time.perf_counter() - t0) * 1e3 / iters
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            self.model(wav)
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / iters
+    @staticmethod
+    def _share(model, rows: np.ndarray, device: torch.device, fn):
+        """Host rows -> ``device`` (the ``sed::serve.upload`` span), then
+        ``fn(model, rows)`` (the ``sed::serve.forward`` span)."""
+        with span('serve.upload'):
+            rows = torch.from_numpy(np.ascontiguousarray(rows)).to(device)
+        with span('serve.forward'):
+            return fn(model, rows)
 
     def _shares(self, rows: np.ndarray, fn):
         """``fn(model, rows on its device)`` -> tuple of tensors, for each
@@ -230,10 +217,8 @@ class SedInferenceEngine:
         is launched before any result is read, then each output is
         gathered in order onto the first device."""
         if len(self.replicas) == 1:
-            return fn(self.model, torch.from_numpy(
-                np.ascontiguousarray(rows)).to(self.device))
-        outs = [fn(model, torch.from_numpy(np.ascontiguousarray(share))
-                   .to(dev))
+            return self._share(self.model, rows, self.device, fn)
+        outs = [self._share(model, share, dev, fn)
                 for model, dev, share in zip(
                     self.replicas, self.devices,
                     np.array_split(rows, len(self.replicas)))
@@ -247,9 +232,16 @@ class SedInferenceEngine:
         out = model(wire_ops.dequant_wire(rows, samples=self.window_samples))
         return out['framewise_output'], out['clipwise_output']
 
+    def _run_covered(self, model: torch.nn.Module, rows: torch.Tensor):
+        """``_run`` with the framewise output divided by one window's
+        coverage."""
+        framewise, clipwise = self._run(model, rows)
+        return (framewise / self._coverage.to(framewise.device)[None, :, None],
+                clipwise)
+
     @torch.inference_mode()
-    def _forward(self, wire: np.ndarray):
-        return self._shares(wire, self._run)
+    def _forward(self, wire: np.ndarray, cover: bool = False):
+        return self._shares(wire, self._run_covered if cover else self._run)
 
     def _check_clip_widths(self, wavs: np.ndarray) -> None:
         """(N, W) clips whose width is ``window_samples`` or a uint8
@@ -378,7 +370,8 @@ class SedInferenceEngine:
                     'offset': fin / fps,
                     'event_label': self.labels[int(act_c[j])]})
 
-    def _pull_tracks(self, framewise: torch.Tensor):
+    def _pull_tracks(self, framewise: torch.Tensor,
+                     into: Optional[dict] = None):
         """Coverage-normalised (N, T, C) framewise output on the device ->
         (active clip and class indices, their packed high and low masks
         on the host, bytes pulled).
@@ -386,32 +379,37 @@ class SedInferenceEngine:
         One pull of the (N, C) track maxima picks the active tracks
         (max > high threshold); their high/low masks (``>`` high, ``>=``
         low, float32 thresholds) are made on the device and pulled in one
-        transfer.
+        transfer.  The ``sed::serve.pull`` span (into ``into['pull_s']``).
         """
-        high = np.asarray(self._params['sed_high_threshold'], np.float64)
-        track_max = framewise.amax(dim=1).cpu().numpy()     # one pull
-        act_n, act_c = np.nonzero(track_max > high[None, :])
-        pulled = track_max.nbytes
-        if not act_n.size:
-            return act_n, act_c, None, None, pulled
-        idx_n = torch.from_numpy(act_n).to(self.device)
-        idx_c = torch.from_numpy(act_c).to(self.device)
-        tracks = framewise[idx_n, :, idx_c]                 # (K, T)
-        masks = torch.cat([tracks > self._high_dev[idx_c][:, None],
-                           tracks >= self._low_dev[idx_c][:, None]])
-        masks = masks.cpu().numpy()                         # one pull
-        k = act_n.size
-        return (act_n, act_c, np.packbits(masks[:k], axis=1),
-                np.packbits(masks[k:], axis=1), pulled + masks.nbytes)
+        with span('serve.pull', into, 'pull_s'):
+            high = np.asarray(self._params['sed_high_threshold'], np.float64)
+            track_max = framewise.amax(dim=1).cpu().numpy()     # one pull
+            act_n, act_c = np.nonzero(track_max > high[None, :])
+            pulled = track_max.nbytes
+            if not act_n.size:
+                return act_n, act_c, None, None, pulled
+            idx_n = torch.from_numpy(act_n).to(self.device)
+            idx_c = torch.from_numpy(act_c).to(self.device)
+            tracks = framewise[idx_n, :, idx_c]                 # (K, T)
+            masks = torch.cat([tracks > self._high_dev[idx_c][:, None],
+                               tracks >= self._low_dev[idx_c][:, None]])
+            masks = masks.cpu().numpy()                         # one pull
+            k = act_n.size
+            return (act_n, act_c, np.packbits(masks[:k], axis=1),
+                    np.packbits(masks[k:], axis=1), pulled + masks.nbytes)
 
     def _decode_pulled(self, pulled, n: int, names: List[str],
-                       t_frames: int) -> List[List[dict]]:
-        act_n, act_c, high_packed, low_packed, _ = pulled
-        per_clip: List[List[dict]] = [[] for _ in range(n)]
-        if act_n.size:
-            self._decode_tracks_into(per_clip, names, high_packed,
-                                     low_packed, act_n, act_c, t_frames)
-        return per_clip
+                       t_frames: int, into: Optional[dict] = None
+                       ) -> List[List[dict]]:
+        """The pulled masks -> per-clip event dicts: the
+        ``sed::serve.decode`` span (into ``into['decode_s']``)."""
+        with span('serve.decode', into, 'decode_s'):
+            act_n, act_c, high_packed, low_packed, _ = pulled
+            per_clip: List[List[dict]] = [[] for _ in range(n)]
+            if act_n.size:
+                self._decode_tracks_into(per_clip, names, high_packed,
+                                         low_packed, act_n, act_c, t_frames)
+            return per_clip
 
     def _events_on_device(self, framewise: torch.Tensor,
                           names: List[str]) -> List[List[dict]]:
@@ -447,19 +445,21 @@ class SedInferenceEngine:
             return per_clip, xmls
         self._check_clip_widths(wavs)
 
-        framewise = []
-        for i0 in range(0, n, self.batch_size):
-            fw, _ = self._forward(wavs[i0:i0 + self.batch_size])
-            framewise.append(fw / self._coverage[None, :, None])
+        framewise = [self._forward(wavs[i0:i0 + self.batch_size],
+                                   cover=True)[0]
+                     for i0 in range(0, n, self.batch_size)]
         per_clip = self._events_on_device(torch.cat(framewise), names)
         return per_clip, self._clip_xmls(per_clip, names)
 
-    def _clip_xmls(self, per_clip: List[List[dict]],
-                   names: List[str]) -> List[str]:
-        return [xml_writer.events_to_xml(
-                    sorted(evs, key=lambda e: e['onset']), names[i],
-                    fallback_span=(0, self.sample_duration))
-                for i, evs in enumerate(per_clip)]
+    def _clip_xmls(self, per_clip: List[List[dict]], names: List[str],
+                   into: Optional[dict] = None) -> List[str]:
+        """One XML document a clip: the ``sed::serve.xml`` span (into
+        ``into['decode_s']``)."""
+        with span('serve.xml', into, 'decode_s'):
+            return [xml_writer.events_to_xml(
+                        sorted(evs, key=lambda e: e['onset']), names[i],
+                        fallback_span=(0, self.sample_duration))
+                    for i, evs in enumerate(per_clip)]
 
     @torch.inference_mode()
     def predict_clips_stream(self, chunk_iter: Iterable[np.ndarray],
@@ -531,12 +531,11 @@ class SedInferenceEngine:
                 if not len(chunk):          # adds no clips, runs no forward
                     continue
                 i0 = len(per_clip)
-                fw, _ = self._forward(chunk)
+                fw, _ = self._forward(chunk, cover=True)
                 chunk_names = (names[i0:i0 + len(chunk)] if names is not None
                                else [f'clip{i}.wav'
                                      for i in range(i0, i0 + len(chunk))])
-                per_clip.extend(self._events_on_device(
-                    fw / self._coverage[None, :, None], chunk_names))
+                per_clip.extend(self._events_on_device(fw, chunk_names))
         finally:
             # unwind on any exit: wake a reader parked on the full queue
             stop.set()
@@ -601,17 +600,16 @@ class SedInferenceEngine:
             clips = wire_ops.dequant_wire(rows, clip_samples)
             wins = torch.stack([clips[:, o:o + self.window_samples]
                                 for o in offs], dim=1)   # (nc, W, samples)
-            return model(wins.reshape(-1, self.window_samples))[
-                'framewise_output'].view(len(rows), w_count, t_win, -1),
-
-        nc = max(1, self.batch_size // w_count)
-        merged = []
-        for i0 in range(0, n, nc):
-            fw, = self._shares(wavs[i0:i0 + nc], run)
+            fw = model(wins.reshape(-1, self.window_samples))[
+                'framewise_output'].view(len(rows), w_count, t_win, -1)
             acc = fw.new_zeros((fw.shape[0], total, fw.shape[-1]))
             for w in range(w_count):
                 acc[:, w * interval:w * interval + t_win] += fw[:, w]
-            merged.append(acc / coverage[None, :, None])
+            return acc / coverage.to(acc.device)[None, :, None],
+
+        nc = max(1, self.batch_size // w_count)
+        merged = [self._shares(wavs[i0:i0 + nc], run)[0]
+                  for i0 in range(0, n, nc)]
         return self._events_on_device(torch.cat(merged), names)
 
     # ------------------------------------------------------------------
@@ -674,28 +672,24 @@ class SedInferenceEngine:
         or decoded.  Per batch the forward and coverage normalisation,
         then one pull of the whole pass (``_pull_tracks``), the host
         decode and the XML, as ``predict_clips`` does."""
+        times.update(launch_s=0.0, pull_s=0.0, decode_s=0.0)
         if not n:                  # no clips: no forward, no pull
             if telemetry is not None:
-                telemetry.update(times, launch_s=0.0, pull_s=0.0,
-                                 decode_s=0.0, bytes_h2d=int(bytes_h2d),
+                telemetry.update(times, bytes_h2d=int(bytes_h2d),
                                  bytes_d2h=0, n_batches=0)
             return [], []
-        t1 = time.perf_counter()
         framewise = []
         for i0 in range(0, n, self.batch_size):
-            fw, _ = self._run(self.model,
-                              rows_of(i0, min(n, i0 + self.batch_size)))
-            framewise.append(fw / self._coverage[None, :, None])
+            with span('serve.forward', times, 'launch_s'):
+                framewise.append(self._run_covered(
+                    self.model, rows_of(i0, min(n, i0 + self.batch_size)))[0])
         framewise = torch.cat(framewise)
-        t2 = time.perf_counter()
-        pulled = self._pull_tracks(framewise)
-        t3 = time.perf_counter()
-        per_clip = self._decode_pulled(pulled, n, names, framewise.shape[1])
-        xmls = self._clip_xmls(per_clip, names)
+        pulled = self._pull_tracks(framewise, times)
+        per_clip = self._decode_pulled(pulled, n, names, framewise.shape[1],
+                                       times)
+        xmls = self._clip_xmls(per_clip, names, times)
         if telemetry is not None:
-            telemetry.update(times, launch_s=t2 - t1, pull_s=t3 - t2,
-                             decode_s=time.perf_counter() - t3,
-                             bytes_h2d=int(bytes_h2d),
+            telemetry.update(times, bytes_h2d=int(bytes_h2d),
                              bytes_d2h=int(pulled[-1]),
                              n_batches=-(-n // self.batch_size))
         return per_clip, xmls
@@ -719,14 +713,13 @@ class SedInferenceEngine:
         if names is None:
             names = [f'clip{i}.wav' for i in range(n)]
         self._check_clip_widths(wavs)
-        t0 = time.perf_counter()
-        host = self._host_buffer(wavs.shape, wavs.dtype)
-        host.numpy()[:] = wavs
-        dev = self._upload(host)
-        return self._serve_resident(
-            lambda i0, i1: dev[i0:i1], n, names, telemetry,
-            dict(read_s=0.0, upload_s=time.perf_counter() - t0),
-            host.nbytes)
+        times = dict(read_s=0.0)
+        with span('serve.upload', times, 'upload_s'):
+            host = self._host_buffer(wavs.shape, wavs.dtype)
+            host.numpy()[:] = wavs
+            dev = self._upload(host)
+        return self._serve_resident(lambda i0, i1: dev[i0:i1], n, names,
+                                    telemetry, times, host.nbytes)
 
     def predict_files_resident(self, paths: Sequence[str], reader,
                                names: Optional[List[str]] = None,
@@ -773,30 +766,30 @@ class SedInferenceEngine:
             if telemetry is not None:
                 telemetry.update(acc, passes=-(-n // step))
             return events, xmls
-        t0 = time.perf_counter()
-        first = np.asarray(reader(paths[0]))
-        self._check_clip_widths(first[None])
-        host = self._host_buffer((n,) + first.shape, first.dtype)
-        buf = host.numpy()
-        buf[0] = first
+        times: dict = {}
+        with span('serve.read', times, 'read_s'):
+            first = np.asarray(reader(paths[0]))
+            self._check_clip_widths(first[None])
+            host = self._host_buffer((n,) + first.shape, first.dtype)
+            buf = host.numpy()
+            buf[0] = first
 
-        def read_rows(lo: int, hi: int) -> None:
-            for j in range(max(lo, 1), hi):
-                row = np.asarray(reader(paths[j]))
-                if row.shape != first.shape or row.dtype != first.dtype:
-                    raise ValueError(
-                        f'{paths[j]}: wire row {row.shape} {row.dtype}, the '
-                        f'first file gave {first.shape} {first.dtype}')
-                buf[j] = row
+            def read_rows(lo: int, hi: int) -> None:
+                for j in range(max(lo, 1), hi):
+                    row = np.asarray(reader(paths[j]))
+                    if row.shape != first.shape or row.dtype != first.dtype:
+                        raise ValueError(
+                            f'{paths[j]}: wire row {row.shape} {row.dtype}, '
+                            f'the first file gave {first.shape} '
+                            f'{first.dtype}')
+                    buf[j] = row
 
-        self._read_shares(self._byte_balanced(np.arange(n + 1),
-                                              upload_threads), read_rows)
-        t1 = time.perf_counter()
-        dev = self._upload(host)
-        return self._serve_resident(
-            lambda i0, i1: dev[i0:i1], n, names, telemetry,
-            dict(read_s=t1 - t0, upload_s=time.perf_counter() - t1),
-            host.nbytes)
+            self._read_shares(self._byte_balanced(np.arange(n + 1),
+                                                  upload_threads), read_rows)
+        with span('serve.upload', times, 'upload_s'):
+            dev = self._upload(host)
+        return self._serve_resident(lambda i0, i1: dev[i0:i1], n, names,
+                                    telemetry, times, host.nbytes)
 
     def _ragged_plan(self, payload_bytes: Sequence[int], n_threads: int):
         """Plan a ragged pass: each clip's word offset in the pool, the
@@ -838,32 +831,32 @@ class SedInferenceEngine:
             payload_bytes = [audio_io.v6_payload_bytes(p) for p in paths]
         offsets, chunks, bounds_b = self._ragged_plan(payload_bytes,
                                                       upload_threads)
-        t0 = time.perf_counter()
-        host = self._host_buffer(
-            (int(bounds_b[-1]) + 4 * self._RAGGED_TAIL_WORDS,), np.uint8)
-        buf = host.numpy()
-        buf[bounds_b[-1]:] = 0
+        times: dict = {}
+        with span('serve.read', times, 'read_s'):
+            host = self._host_buffer(
+                (int(bounds_b[-1]) + 4 * self._RAGGED_TAIL_WORDS,), np.uint8)
+            buf = host.numpy()
+            buf[bounds_b[-1]:] = 0
 
-        def read_rows(lo: int, hi: int) -> None:
-            for j in range(lo, hi):
-                row = np.asarray(reader(paths[j]))
-                if row.dtype != np.uint8 or row.nbytes != payload_bytes[j]:
-                    raise ValueError(
-                        f'{paths[j]}: {row.nbytes} bytes of {row.dtype}, '
-                        f'expected {payload_bytes[j]} uint8')
-                buf[bounds_b[j]:bounds_b[j + 1]] = row
+            def read_rows(lo: int, hi: int) -> None:
+                for j in range(lo, hi):
+                    row = np.asarray(reader(paths[j]))
+                    if row.dtype != np.uint8 or \
+                            row.nbytes != payload_bytes[j]:
+                        raise ValueError(
+                            f'{paths[j]}: {row.nbytes} bytes of {row.dtype}, '
+                            f'expected {payload_bytes[j]} uint8')
+                    buf[bounds_b[j]:bounds_b[j + 1]] = row
 
-        self._read_shares(chunks, read_rows)
-        t1 = time.perf_counter()
-        pool = self._upload(host.view(torch.int32))
+            self._read_shares(chunks, read_rows)
+        with span('serve.upload', times, 'upload_s'):
+            pool = self._upload(host.view(torch.int32))
         offs = torch.from_numpy(offsets).to(self.device)
         samples = self.window_samples
         return self._serve_resident(
             lambda i0, i1: wire_ops.dequant_v6_pool(pool, offs[i0:i1],
                                                     samples),
-            n, names, telemetry,
-            dict(read_s=t1 - t0, upload_s=time.perf_counter() - t1),
-            host.nbytes + offsets.nbytes)
+            n, names, telemetry, times, host.nbytes + offsets.nbytes)
 
     def predict_rows_resident(self, rows_list: Sequence[np.ndarray],
                               names: Optional[List[str]] = None

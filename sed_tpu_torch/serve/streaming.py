@@ -34,6 +34,13 @@ How finality is decided, per class:
 
 Memory: O(stream length) framewise sums (25 floats per 10 ms), not
 O(windows x window length) — windows are overlap-added incrementally.
+
+Cost: each feed that finalises frames decodes the whole norm-final
+prefix again.  Two process-wide counters measure that waste:
+``StreamingSed.frames_decoded`` (every frame handed to the event decoder)
+over ``StreamingSed.frames_streamed`` (the frames of every flushed
+stream's merged output).  ``feed`` and ``flush`` run under the
+``sed::stream.*`` spans of ``utils/profiling.span``.
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ from sed_tpu_torch.post import events as post_events
 from sed_tpu_torch.post import merge as post_merge
 from sed_tpu_torch.post.events import _as_params_dict
 from sed_tpu_torch.serve.engine import window_starts
+from sed_tpu_torch.utils.profiling import span
 
 #: extra below-low frames (beyond n_smooth) required to declare an event
 #: out of reach of future audio — covers the reference decoder's +-1
@@ -81,6 +89,11 @@ class StreamingSed:
     audio (up to ordering — streaming emits in finalization order).
     It runs on one device: an engine over several raises ValueError.
     """
+
+    #: frames handed to the event decoder, over every stream (only grows)
+    frames_decoded = 0
+    #: frames of every flushed stream's merged output (only grows)
+    frames_streamed = 0
 
     def __init__(self, engine, audio_name: str = 'stream'):
         assert engine.overlap, (
@@ -147,12 +160,19 @@ class StreamingSed:
             self._next_start += 1
         if not starts:
             return
-        windows = np.stack([
-            self._audio_slice(int(s * self.sr), self.window_samples)
-            for s in starts])
-        framewise, _ = self.engine.infer_framewise(windows)
-        self._add_windows(framewise, starts)
+        self._forward(starts)
         self._drop_consumed_audio()
+
+    def _forward(self, starts: List[int]) -> None:
+        """The windows at ``starts`` (seconds): gathered, run through
+        ``infer_framewise`` and overlap-added (the ``sed::stream.forward``
+        span)."""
+        with span('stream.forward'):
+            windows = np.stack([
+                self._audio_slice(int(s * self.sr), self.window_samples)
+                for s in starts])
+            framewise, _ = self.engine.infer_framewise(windows)
+            self._add_windows(framewise, starts)
 
     def _add_windows(self, framewise: np.ndarray, starts: List[int]):
         t_win = framewise.shape[1]
@@ -188,78 +208,85 @@ class StreamingSed:
         div = post_merge.coverage_counts(
             t_total, self.sample_duration, self.engine.overlap_value)
         probs = self._sums[:, :n_frames] / div[:n_frames][None, :, None]
+        StreamingSed.frames_decoded += probs.shape[1]
         return post_events.frame_prediction_to_event_prediction_v2(
             probs, self.audio_name, self.engine.sed_params, self.fps,
             self.engine.labels), probs
 
     def _finalized(self) -> List[dict]:
+        """The events of the norm-final prefix that no later audio can
+        change and that were not emitted yet (the ``sed::stream.decode``
+        span)."""
         b0 = self._norm_final_frames()
         if b0 <= 0:
             return []
-        evs, probs = self._decode_prefix(b0)
-        out = []
-        unstable = {}
-        for e in evs:
-            k = self._lb_to_idx[e['event_label']]
-            fin = int(round(e['offset'] * self.fps))
-            if k not in unstable:
-                unstable[k] = _unstable_start(
-                    probs[0, :, k], self._low[k],
-                    int(self._n_smooth[k]) + _FINALITY_MARGIN)
-            if fin + int(self._n_smooth[k]) + _FINALITY_MARGIN \
-                    >= unstable[k]:
-                continue
-            key = (e['event_label'], round(e['onset'], 4),
-                   round(e['offset'], 4))
-            if key in self._emitted:
-                continue
-            self._emitted.add(key)
-            out.append(e)
-        return out
+        with span('stream.decode'):
+            evs, probs = self._decode_prefix(b0)
+            out = []
+            unstable = {}
+            for e in evs:
+                k = self._lb_to_idx[e['event_label']]
+                fin = int(round(e['offset'] * self.fps))
+                if k not in unstable:
+                    unstable[k] = _unstable_start(
+                        probs[0, :, k], self._low[k],
+                        int(self._n_smooth[k]) + _FINALITY_MARGIN)
+                if fin + int(self._n_smooth[k]) + _FINALITY_MARGIN \
+                        >= unstable[k]:
+                    continue
+                key = (e['event_label'], round(e['onset'], 4),
+                       round(e['offset'], 4))
+                if key in self._emitted:
+                    continue
+                self._emitted.add(key)
+                out.append(e)
+            return out
 
     # ------------------------------------------------------------------
 
     def feed(self, samples: np.ndarray) -> List[dict]:
         """Ingest a chunk; return events finalized by it."""
         assert not self._finished, 'stream already flushed'
-        samples = np.asarray(samples, np.float32).reshape(-1)
-        if samples.size:
-            self._chunks.append(samples)
-            self._total += samples.size
-        self._process_ready()
-        return self._finalized()
+        with span('stream.feed'):
+            samples = np.asarray(samples, np.float32).reshape(-1)
+            if samples.size:
+                self._chunks.append(samples)
+                self._total += samples.size
+            self._process_ready()
+            return self._finalized()
 
     def flush(self) -> List[dict]:
         """End of stream: process the tail and return every event not
         yet emitted.  feed()+flush() output == the offline pipeline."""
         assert not self._finished, 'stream already flushed'
         self._finished = True
-        self._process_ready()
-        duration = self._total / float(self.sr)
-        # the offline grid always contains start 0, padded if the whole
-        # stream is shorter than one window (engine.predict_waveform /
-        # predict.py:297-305)
-        starts = window_starts(duration, self.sample_duration, True)
-        missing = [int(s) for s in starts if s >= self._next_start]
-        if missing:
-            windows = np.stack([
-                self._audio_slice(int(s * self.sr), self.window_samples)
-                for s in missing])
-            framewise, _ = self.engine.infer_framewise(windows)
-            self._add_windows(framewise, missing)
-            self._next_start = missing[-1] + 1
-        if self._sums is None:
-            return []
-        probs = post_merge.avg_merge(
-            self._sums, self.sample_duration, self.engine.overlap_value)
-        evs = post_events.frame_prediction_to_event_prediction_v2(
-            probs, self.audio_name, self.engine.sed_params, self.fps,
-            self.engine.labels)
-        out = []
-        for e in evs:
-            key = (e['event_label'], round(e['onset'], 4),
-                   round(e['offset'], 4))
-            if key not in self._emitted:
-                self._emitted.add(key)
-                out.append(e)
-        return out
+        with span('stream.flush'):
+            self._process_ready()
+            duration = self._total / float(self.sr)
+            # the offline grid always contains start 0, padded if the
+            # whole stream is shorter than one window
+            # (engine.predict_waveform / predict.py:297-305)
+            starts = window_starts(duration, self.sample_duration, True)
+            missing = [int(s) for s in starts if s >= self._next_start]
+            if missing:
+                self._forward(missing)
+                self._next_start = missing[-1] + 1
+            if self._sums is None:
+                return []
+            with span('stream.decode'):
+                probs = post_merge.avg_merge(
+                    self._sums, self.sample_duration,
+                    self.engine.overlap_value)
+                StreamingSed.frames_decoded += probs.shape[1]
+                StreamingSed.frames_streamed += probs.shape[1]
+                evs = post_events.frame_prediction_to_event_prediction_v2(
+                    probs, self.audio_name, self.engine.sed_params, self.fps,
+                    self.engine.labels)
+                out = []
+                for e in evs:
+                    key = (e['event_label'], round(e['onset'], 4),
+                           round(e['offset'], 4))
+                    if key not in self._emitted:
+                        self._emitted.add(key)
+                        out.append(e)
+                return out

@@ -5,7 +5,10 @@ A daemon thread assembles batch k+1 and copies it to the card while the
 step runs batch k: from pinned host memory, ``non_blocking``, on a copy
 stream of its own; the consumer's stream waits for that copy before it
 reads the batch (the reference hides the same transfer with torch's
-pinned-memory DataLoader, ``main_strong.py:254``).
+pinned-memory DataLoader, ``main_strong.py:254``).  The consumer's wait
+for its next batch is the ``sed::train.batch_wait`` span; the producer
+thread's work is not in a trace (a profiler records only the thread that
+entered it).
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ from typing import Callable, Iterator, Optional
 
 import numpy as np
 import torch
+
+from sed_tpu_torch.utils.profiling import span
 
 
 def _to_tensor(x, device: torch.device, pin: bool):
@@ -112,7 +117,8 @@ def device_prefetch(it: Iterator, size: int = 2,
 
     try:
         while True:
-            item = q.get()
+            with span('train.batch_wait'):
+                item = q.get()
             if item is _END:
                 err = q.get()
                 if err is not None:

@@ -727,8 +727,8 @@ def test_calculate_metrics_cli_equals_sed_tpu(tmp_path, capsys):
 
 
 # ---------------------------------------------------------------------------
-# the wire codecs, savers and file readers of data/audio_io.py, the native
-# ADPCM encoder and utils/profiling.py
+# the wire codecs, savers and file readers of data/audio_io.py and the
+# native ADPCM encoder
 # ---------------------------------------------------------------------------
 
 def _v6_edge_inputs(samples: int = 16000) -> dict:
@@ -908,22 +908,3 @@ def test_training_wire_runs_the_native_adpcm_encoder(monkeypatch):
     assert np.array_equal(got, JaxDataset(wire='adpcm4')._encode_wire(pcm))
     assert len(calls) == int(adpcm_native.native_available())
 
-
-def test_step_timer_equals_sed_tpu_under_a_fake_clock(monkeypatch):
-    import time
-    from sed_tpu.utils.profiling import StepTimer as JaxStepTimer
-    from sed_tpu_torch.utils.profiling import StepTimer
-    ticks = np.cumsum(np.random.RandomState(5).uniform(0.01, 0.5, 20))
-    now = [0.0]
-    monkeypatch.setattr(time, 'time', lambda: now[0])
-    timers = (StepTimer(window=7), JaxStepTimer(window=7))
-    for i, tick in enumerate(ticks):
-        now[0] = float(tick)
-        for t in timers:
-            t.step(examples=3 + i % 4)
-        got, want = timers
-        assert got.steps_per_sec == want.steps_per_sec
-        assert got.examples_per_sec == want.examples_per_sec
-        assert (got.steps_per_sec > 0) == (i > 0)
-    # a window of 7 steps: 7 / (their summed intervals)
-    assert got.steps_per_sec == 7 / sum(np.diff(ticks)[-7:].tolist())

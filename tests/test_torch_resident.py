@@ -212,7 +212,6 @@ def test_warmup_and_measure_forward_ms(engines, clips):
     port.warmup(FORMATS['q6'][1](clips))
     with pytest.raises(AssertionError):
         port.warmup(FORMATS['q6'][1](clips[:3]))
-    assert port.measure_forward_ms(iters=1) > 0
 
 
 def _predict_argv(in_dir, ws, *extra):
