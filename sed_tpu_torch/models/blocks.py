@@ -24,6 +24,7 @@ from torch import nn
 from torch.nn.modules.batchnorm import _BatchNorm
 
 from sed_tpu_torch.augment.functional import rand_rows
+from sed_tpu_torch.utils.profiling import span
 
 
 class BatchNorm(_BatchNorm):
@@ -154,19 +155,77 @@ def pad_framewise_output(x: torch.Tensor, frames_num: int) -> torch.Tensor:
     return torch.cat([x, pad], dim=1)
 
 
+def _on_card(x: torch.Tensor) -> bool:
+    return x.is_cuda
+
+
+class measured_choice:
+    """``with measured_choice():`` runs the block with cuDNN in benchmark
+    mode: a convolution whose (shape, dtype, layout) the process has not
+    run before times cuDNN's candidate engines (``benchmark_limit`` of
+    them) and keeps the fastest for the process.  One it has run, in
+    either mode, keeps the plan it has: torch's plan cache does not key
+    on the flag.  Only the benchmark flag changes, and it is as it was
+    when the block leaves, also on an exception
+    (``torch.backends.cudnn.flags`` would reset every flag it is not
+    given, the fp32 precision among them)."""
+
+    __slots__ = ('_saved',)
+
+    def __enter__(self) -> 'measured_choice':
+        self._saved = torch._C._get_cudnn_benchmark()
+        torch._C._set_cudnn_benchmark(True)
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        torch._C._set_cudnn_benchmark(self._saved)
+        return False
+
+
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` that computes in ``compute_dtype`` when it is set:
     input and weight rounded to it, the output (rounded to it too, as
     ``sed_tpu``'s ``nn.Conv(dtype=bfloat16)`` returns it) cast back to
     float32.  The weight, its gradient's destination and the optimizer
     state stay float32.  The cast is inside ``forward``, so hooks on the
-    module (FSDP's all-gather) see the call."""
+    module (FSDP's all-gather) see the call.
+
+    In eval mode on the card the convolution runs under
+    ``measured_choice``: for one layer of the 5 s conv stack (128
+    channels at 250 x 32) cuDNN's heuristic picks an FFT convolution
+    nine times slower than the implicit GEMM that timing picks.  Training
+    mode and CPU tensors run as ``nn.Conv2d`` does.  Counters:
+    ``measured_calls``, the convolutions run so; ``searched_shapes``,
+    those whose shape (input, weight, compute dtype, device) the process
+    had not run so before, each inside a ``sed::conv.search`` span."""
+
+    measured_calls = 0
+    searched_shapes = 0
+    _searched = set()
 
     def __init__(self, *args, compute_dtype=None, **kwargs):
         super().__init__(*args, **kwargs)
         self.compute_dtype = compute_dtype
+        # what, besides the input and the compute dtype, keys a plan
+        self._geometry = (tuple(self.weight.shape), self.stride,
+                          self.padding, self.dilation, self.groups)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training or not _on_card(x):
+            return self._compute(x)
+        key = (x.shape, x.dtype, x.device, self.compute_dtype,
+               self._geometry)
+        Conv2d.measured_calls += 1
+        with measured_choice():
+            if key in Conv2d._searched:
+                return self._compute(x)
+            with span('conv.search'):
+                out = self._compute(x)
+        Conv2d._searched.add(key)
+        Conv2d.searched_shapes += 1
+        return out
+
+    def _compute(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         if dt is None:
             return super().forward(x)

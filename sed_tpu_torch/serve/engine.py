@@ -193,8 +193,8 @@ class SedInferenceEngine:
     def warmup(self, example: Optional[np.ndarray] = None) -> None:
         """One batched forward in the wire format of ``example`` (a
         (batch_size, W) batch; float32 zeros by default), so that the
-        kernels are built and cuDNN has chosen its algorithms before a
-        timed call."""
+        kernels are built and cuDNN has timed and chosen its algorithms
+        for that shape before a timed call."""
         z = example if example is not None else np.zeros(
             (self.batch_size, self.window_samples), np.float32)
         assert z.shape[0] == self.batch_size, (z.shape, self.batch_size)

@@ -760,3 +760,78 @@ def test_cuda_resident_passes_match_cpu(device):
     assert gpu.predict_clips_resident(q6) == want
     assert gpu.predict_rows_resident(rows) == want
     assert cpu.predict_rows_resident(rows) == want
+
+
+def _bench_forward(device, clips: int = 32) -> dict:
+    """The bench checkpoint's GRU model in eval mode on ``clips`` 5 s
+    bench-corpus clips: {output name: numpy array}."""
+    from sed_tpu_torch.bench_corpus import make_clips
+    cfg = config.AUDIO_16K
+    wav = torch.from_numpy(make_clips(clips, cfg.sample_rate, seconds=5,
+                                      seed=0)).to(device)
+    model = load_npz(CKPT, MODEL, cfg, device).eval()
+    with torch.inference_mode():
+        out = model(wav)
+    return {k: out[k].cpu().numpy()
+            for k in ('framewise_output', 'clipwise_output')}
+
+
+def test_cuda_measured_conv_choice_matches_the_heuristic(device, tmp_path):
+    """32 x 5 s clips through the conv stack under cuDNN's measured
+    choice are within 1e-5 of the same forward under its heuristic
+    (benchmark off), run in a process of its own: the plan that a
+    process picks first for a shape is the one it keeps."""
+    path = tmp_path / 'heuristic.npz'
+    code = ('import sys, numpy as np, torch; sys.path[:0] = [{r!r}, {t!r}]; '
+            'from sed_tpu_torch.models import blocks; '
+            'from sed_tpu_torch.serve import engine; engine.disable_tf32(); '
+            'torch.backends.cudnn.benchmark = False; '
+            'blocks._on_card = lambda x: False; '
+            'import test_torch_cuda as t; '
+            'np.savez({p!r}, **t._bench_forward("cuda"))').format(
+                r=REPO, t=os.path.join(REPO, 'tests'), p=str(path))
+    import subprocess
+    subprocess.run([sys.executable, '-c', code], check=True, cwd=REPO,
+                   timeout=600)
+    from sed_tpu_torch.models import blocks
+    calls = blocks.Conv2d.measured_calls
+    got = _bench_forward(device)
+    assert blocks.Conv2d.measured_calls == calls + 8
+    want = np.load(path)
+    for k, v in got.items():
+        np.testing.assert_allclose(v, want[k], rtol=0, atol=1e-5, err_msg=k)
+
+
+def test_cuda_conv_search_once_per_shape(device, monkeypatch):
+    from sed_tpu_torch.models import blocks
+    monkeypatch.setattr(blocks.Conv2d, '_searched', set())
+    block = blocks.ConvBlock(1, 16).to(device).eval()
+    before = torch.backends.cudnn.benchmark
+    calls, searched = blocks.Conv2d.measured_calls, \
+        blocks.Conv2d.searched_shapes
+    for batch, want in ((4, (2, 2)), (4, (4, 2)), (2, (6, 4)), (4, (8, 4))):
+        with torch.no_grad():
+            block(torch.randn(batch, 1, 101, 64, device=device))
+        assert (blocks.Conv2d.measured_calls - calls,
+                blocks.Conv2d.searched_shapes - searched) == want, batch
+    torch.cuda.synchronize()
+    assert torch.backends.cudnn.benchmark == before
+
+
+def test_cuda_no_fft_convolution_at_5s(device):
+    """A profiled eval-mode forward of 32 x 5 s clips, after a warm one,
+    runs its convolutions with no FFT kernel (cuDNN's heuristic picks one
+    for one layer of the 5 s stack)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    _bench_forward(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _bench_forward(device)
+    events = list(prof.events())
+    kernels = {e.name for e in events if e.device_type != DeviceType.CPU}
+    convs = [e for e in events if e.name == 'aten::cudnn_convolution']
+    assert len(convs) == 8
+    fft = sorted(k for k in kernels if 'fft' in k.lower() or 'DSE::' in k
+                 or 'complex' in k)
+    assert not fft, fft

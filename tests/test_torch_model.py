@@ -240,3 +240,100 @@ def test_multihead_and_train_mode_raise():
     assert model.bn0.num_batches_tracked == 1
     assert not torch.equal(model.bn0.running_mean,
                            torch.zeros_like(model.bn0.running_mean))
+
+
+def _parent_conv_forward(conv, x):
+    """``blocks.Conv2d.forward`` as it was before eval-mode convolutions
+    on the card ran under cuDNN's measured choice."""
+    dt = conv.compute_dtype
+    if dt is None:
+        return torch.nn.Conv2d.forward(conv, x)
+    bias = None if conv.bias is None else conv.bias.to(dt)
+    return conv._conv_forward(x.to(dt), conv.weight.to(dt), bias).to(x.dtype)
+
+
+def _cudnn_flags():
+    c = torch.backends.cudnn
+    return (c.benchmark, c.benchmark_limit, c.deterministic, c.allow_tf32)
+
+
+@pytest.mark.parametrize('dtype', [None, torch.bfloat16],
+                         ids=['float32', 'bf16'])
+@pytest.mark.parametrize('training', [False, True], ids=['eval', 'train'])
+def test_conv_block_on_cpu_unchanged_and_uncounted(monkeypatch, training,
+                                                   dtype):
+    """On the CPU, in either mode, a ConvBlock's output (and in training
+    mode its running statistics) are bitwise the old forward's, and no
+    convolution is counted as run under the measured choice."""
+    torch.manual_seed(0)
+    block = blocks.ConvBlock(3, 8, dtype=dtype).train(training)
+    old = blocks.ConvBlock(3, 8, dtype=dtype).train(training)
+    old.load_state_dict(block.state_dict())
+    for conv in (old.conv1, old.conv2):
+        monkeypatch.setattr(conv, 'forward',
+                            lambda x, conv=conv: _parent_conv_forward(conv, x))
+    x = torch.randn(2, 3, 21, 16)
+    calls, searched = blocks.Conv2d.measured_calls, \
+        blocks.Conv2d.searched_shapes
+    with torch.no_grad():
+        got, want = block(x), old(x)
+    assert torch.equal(got, want)
+    for k, v in old.state_dict().items():
+        assert torch.equal(block.state_dict()[k], v), k
+    assert (blocks.Conv2d.measured_calls, blocks.Conv2d.searched_shapes) \
+        == (calls, searched)
+
+
+@pytest.mark.parametrize('benchmark', [False, True])
+def test_measured_choice_scope_and_counters(monkeypatch, benchmark):
+    """With the card predicate faked true, an eval-mode ConvBlock runs
+    each convolution with cuDNN's benchmark flag on, counts it, searches
+    (inside a ``sed::conv.search`` span) once per new shape, and leaves
+    every cuDNN flag as it found it, also when the forward raises."""
+    from torch.profiler import ProfilerActivity, profile
+    monkeypatch.setattr(blocks, '_on_card', lambda x: True)
+    monkeypatch.setattr(blocks.Conv2d, '_searched', set())
+    inside = []
+    compute = blocks.Conv2d._compute
+
+    def spy(self, x):
+        inside.append(torch.backends.cudnn.benchmark)
+        return compute(self, x)
+    monkeypatch.setattr(blocks.Conv2d, '_compute', spy)
+    block = blocks.ConvBlock(3, 8).eval()
+    monkeypatch.setattr(torch.backends.cudnn, 'benchmark', benchmark)
+    flags = _cudnn_flags()
+    calls, searched = blocks.Conv2d.measured_calls, \
+        blocks.Conv2d.searched_shapes
+
+    def forward(x):
+        with profile(activities=[ProfilerActivity.CPU]) as prof, \
+                torch.no_grad():
+            block(x)
+        assert _cudnn_flags() == flags
+        return sum(e.name == 'sed::conv.search' for e in prof.events())
+
+    def counted():
+        return (blocks.Conv2d.measured_calls - calls,
+                blocks.Conv2d.searched_shapes - searched)
+    assert forward(torch.randn(2, 3, 21, 16)) == 2
+    assert counted() == (2, 2)
+    assert forward(torch.randn(2, 3, 21, 16)) == 0
+    assert counted() == (4, 2)
+    assert forward(torch.randn(1, 3, 21, 16)) == 2
+    assert counted() == (6, 4)
+    assert inside == [True] * 6
+    with pytest.raises(RuntimeError):
+        block(torch.randn(2, 4, 21, 16))             # 4 channels, not 3
+    assert _cudnn_flags() == flags
+    assert counted() == (7, 4)
+
+
+def test_measured_choice_restores_the_flag_on_an_exception(monkeypatch):
+    monkeypatch.setattr(torch.backends.cudnn, 'benchmark', False)
+    flags = _cudnn_flags()
+    with pytest.raises(KeyError):
+        with blocks.measured_choice():
+            assert torch.backends.cudnn.benchmark
+            raise KeyError('x')
+    assert _cudnn_flags() == flags
