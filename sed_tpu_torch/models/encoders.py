@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from sed_tpu_torch.models.blocks import BatchNorm, dropout
+from sed_tpu_torch.utils.profiling import span
 
 MIN_VALUE = float(np.finfo(np.float32).min)
 
@@ -311,30 +312,33 @@ class RelMultiHeadAttn(nn.Module):
         self.o_net = nn.Linear(n_head * d_head, d_model, bias=False)
 
     def forward(self, x, mask=None, generator=None):
-        b, t, _ = x.shape
-        h = self.n_head
-        d_head = self.d_model // h
-        q, k, v = torch.chunk(self.qkv_net(self.layer_norm(x)), 3, dim=-1)
-        r_k = self.r_net(_rel_pos(t, self.d_model, x.device).to(x.dtype))
-        q = q.view(b, t, h, d_head)
-        k = k.view(b, t, h, d_head).permute(0, 2, 3, 1)      # (B,H,d,k)
-        v = v.view(b, t, h, d_head).transpose(1, 2)          # (B,H,k,d)
-        r_k = r_k.view(t, h, d_head).permute(1, 2, 0)        # (H,d,k)
+        with span('conformer.mhsa'):
+            b, t, _ = x.shape
+            h = self.n_head
+            d_head = self.d_model // h
+            q, k, v = torch.chunk(self.qkv_net(self.layer_norm(x)), 3,
+                                  dim=-1)
+            r_k = self.r_net(_rel_pos(t, self.d_model, x.device)
+                             .to(x.dtype))
+            q = q.view(b, t, h, d_head)
+            k = k.view(b, t, h, d_head).permute(0, 2, 3, 1)  # (B,H,d,k)
+            v = v.view(b, t, h, d_head).transpose(1, 2)      # (B,H,k,d)
+            r_k = r_k.view(t, h, d_head).permute(1, 2, 0)    # (H,d,k)
 
-        ac = torch.matmul((q + self.r_w_bias).transpose(1, 2), k)
-        bd = torch.matmul((q + self.r_r_bias).transpose(1, 2), r_k)
-        scores = (ac + rel_shift(bd)) / math.sqrt(d_head)
-        if mask is not None:
-            scores = scores.masked_fill(~mask[:, None], float('-inf'))
-        attn = torch.softmax(scores, dim=-1)
-        if self.training:
-            attn = dropout(attn, self.dropout_rate, generator)
-        out = torch.matmul(attn, v).transpose(1, 2).reshape(b, t,
-                                                            h * d_head)
-        out = self.o_net(out)
-        if self.training:
-            out = dropout(out, self.dropout_rate, generator)
-        return x + out
+            ac = torch.matmul((q + self.r_w_bias).transpose(1, 2), k)
+            bd = torch.matmul((q + self.r_r_bias).transpose(1, 2), r_k)
+            scores = (ac + rel_shift(bd)) / math.sqrt(d_head)
+            if mask is not None:
+                scores = scores.masked_fill(~mask[:, None], float('-inf'))
+            attn = torch.softmax(scores, dim=-1)
+            if self.training:
+                attn = dropout(attn, self.dropout_rate, generator)
+            out = torch.matmul(attn, v).transpose(1, 2).reshape(
+                b, t, h * d_head)
+            out = self.o_net(out)
+            if self.training:
+                out = dropout(out, self.dropout_rate, generator)
+            return x + out
 
 
 class ConvolutionModule(nn.Module):
@@ -354,13 +358,14 @@ class ConvolutionModule(nn.Module):
         self.pw2 = nn.Linear(d_model, d_model)
 
     def forward(self, x, generator=None):
-        a, g = torch.chunk(self.pw1(self.norm(x)), 2, dim=-1)
-        h = (a * torch.sigmoid(g)).transpose(1, 2)           # (B, C, T)
-        h = self.bn(self.dw(h)).transpose(1, 2)
-        h = self.pw2(h * torch.sigmoid(h))
-        if self.training:
-            h = dropout(h, self.dropout_rate, generator)
-        return h
+        with span('conformer.conv'):
+            a, g = torch.chunk(self.pw1(self.norm(x)), 2, dim=-1)
+            h = (a * torch.sigmoid(g)).transpose(1, 2)       # (B, C, T)
+            h = self.bn(self.dw(h)).transpose(1, 2)
+            h = self.pw2(h * torch.sigmoid(h))
+            if self.training:
+                h = dropout(h, self.dropout_rate, generator)
+            return h
 
 
 class MacaronFeedForward(nn.Module):
@@ -374,14 +379,15 @@ class MacaronFeedForward(nn.Module):
         self.w_2 = nn.Linear(d_ff, d_model)
 
     def forward(self, x, generator=None):
-        h = self.w_1(self.norm(x))
-        h = h * torch.sigmoid(h)
-        if self.training:
-            h = dropout(h, self.dropout_rate, generator)
-        h = self.w_2(h)
-        if self.training:
-            h = dropout(h, self.dropout_rate, generator)
-        return h
+        with span('conformer.ffn'):
+            h = self.w_1(self.norm(x))
+            h = h * torch.sigmoid(h)
+            if self.training:
+                h = dropout(h, self.dropout_rate, generator)
+            h = self.w_2(h)
+            if self.training:
+                h = dropout(h, self.dropout_rate, generator)
+            return h
 
 
 class ConformerBlock(nn.Module):
@@ -406,7 +412,15 @@ class ConformerBlock(nn.Module):
 
 
 class ConformerEncoder(nn.Module):
-    """Linear input layer + ``elayers`` conformer blocks."""
+    """Linear input layer + ``elayers`` conformer blocks.
+
+    Each forward runs inside a ``sed::conformer.encoder`` span, its
+    blocks' parts inside ``sed::conformer.ffn``, ``conformer.mhsa`` and
+    ``conformer.conv`` spans.  Counters: ``calls``, the encoder's
+    forwards; ``tokens``, the batch x frames they took."""
+
+    calls = 0
+    tokens = 0
 
     def __init__(self, idim: int, adim: int = 144, dropout_rate: float = 0.1,
                  elayers: int = 3, eunits: int = 576, aheads: int = 4,
@@ -419,10 +433,13 @@ class ConformerEncoder(nn.Module):
                 adim, eunits, aheads, dropout_rate, kernel_size))
 
     def forward(self, x, mask=None, generator=None):
-        x = self.input_layer(x, generator)
-        for i in range(self.elayers):
-            x = getattr(self, f'block{i}')(x, mask, generator)
-        return x, mask
+        ConformerEncoder.calls += 1
+        ConformerEncoder.tokens += x.shape[0] * x.shape[1]
+        with span('conformer.encoder'):
+            x = self.input_layer(x, generator)
+            for i in range(self.elayers):
+                x = getattr(self, f'block{i}')(x, mask, generator)
+            return x, mask
 
 
 # ---------------------------------------------------------------------------
