@@ -10,7 +10,8 @@ checks it against the same engine on the CPU.  Phases:
 
 1. card, power limit, torch / CUDA versions, TF32 flags (both turned off);
 2. build of the CUDA kernels from ``sed_tpu_torch/csrc`` (log-mel, the v6
-   pool decode and the ADPCM decode; one nvcc a source, started together,
+   pool decode, the ADPCM decode and the conv epilogue; one nvcc a
+   source, started together,
    sm_90a), the time, and ptxas's registers, shared memory and spills (no
    spills);
 3. kernel against its plain PyTorch version at 8, 16 and 32 kHz, with a
@@ -18,7 +19,8 @@ checks it against the same engine on the CPU.  Phases:
    full-scale clips, and with a mel filter on the Nyquist bin (rtol 1e-4,
    atol 1e-3 dB);
 4. ``predict_clips`` on 64 int16 bench-corpus clips on the GPU: the
-   kernel's launch count must rise; events and XML identical to the CPU
+   kernel's launch count must rise, and the conv epilogue's by 8 a
+   forward (``check_epilogues``); events and XML identical to the CPU
    engine, framewise output within 1e-4;
 5. ``predict_file`` on a 12 s wav (overlapped windows): events and XML
    identical to the CPU engine;
@@ -26,7 +28,11 @@ checks it against the same engine on the CPU.  Phases:
    batch 1 and 32 of 5 s clips (CUDA events, median of 20, in turns),
    with the kernel's achieved rate and, at 32 x 80000, its bound (the
    operations an FFT needs, or the bytes); ``predict_clips`` clips/s over 512
-   clips at batch 32; a profiler breakdown of one batch;
+   clips at batch 32; a profiler breakdown of one batch; the conv
+   epilogue kernel (``csrc/conv_epilogue.cu``) at each of the 8 epilogues
+   of a 32 x 5 s forward against its plain version (relative error, the
+   pool bitwise on its own BatchNorm-ReLU output) and its bytes' bound,
+   both timed (``epilogue_checks``);
 7. Cnn_9layers_Transformer_FrameAtt at full width on
    ``compat.bench_weights.transformer_variables``: ``predict_clips`` on
    the 64 int16 clips, GPU against CPU (events and XML identical,
@@ -197,8 +203,9 @@ checks it against the same engine on the CPU.  Phases:
 together), ``--resident-only`` phases 1, 2 and 18, ``--learning-only``
 phases 1, 2 and 19, ``--adpcm-only``
 phases 1, 2 and phase 10's ADPCM kernel checks and times
-(``adpcm_kernel_checks``), and none prints a result line (for work on
-that phase).
+(``adpcm_kernel_checks``), ``--epilogue-only`` phases 1, 2 and phase 6's
+conv epilogue checks and times (``epilogue_checks``), and none prints a
+result line (for work on that phase).
 
 Phases 4, 7, 8, 9, 10, 11, 12, 13, 14, 16, 17, 18 and 19 drive the main
 paths: each sets the kernel's launch count to 0 just before and reads it
@@ -206,9 +213,13 @@ just after, and fails if the kernel was not launched; phases 10, 18 and
 19 do the same for the ADPCM kernel on the adpcm4 paths, and phase 18 for
 the v6 decode kernel on the v6 paths.  Phase 15 drives the
 gamma path the same way and fails if log-mel was launched there: that
-path has no kernel, its model takes packed features.  The script imports
-nothing of JAX and nothing of the JAX package ``sed_tpu``, and checks so
-at the end.
+path has no kernel, its model takes packed features.  Every one of
+these runs, phase 15's too, also sets the conv epilogue kernel's count
+to 0 and fails unless it reads 2 launches for each ConvBlock of each
+eval forward and none in a training step (``check_epilogues``); the
+result line's ``launches`` of that kernel add up these counts.  The
+script imports nothing of JAX and nothing of the JAX package
+``sed_tpu``, and checks so at the end.
 
 Any failure raises (exit code != 0).  Without CUDA, or outside the
 repository, it exits non-zero before printing a result.  The last line
@@ -217,6 +228,7 @@ is the JSON result; the line before it names the card and power limit.
 
 import dataclasses
 import functools
+import itertools
 import json
 import os
 import re
@@ -228,7 +240,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-KERNELS = ('logmel', 'v6_decode', 'adpcm_decode')  # csrc/<name>.cu
+KERNELS = ('logmel', 'v6_decode', 'adpcm_decode',   # csrc/<name>.cu
+           'conv_epilogue')
 TOL = dict(rtol=1e-4, atol=1e-3)        # dB; tests/test_ops.py's tolerance
 # Hopper's INT32 pipe: 64 operations a clock on each of an H100 SXM's 132
 # SMs at its 1.98 GHz boost clock (the table's 67 T/s is float32 FMA)
@@ -481,6 +494,25 @@ def graph_launches(fn) -> int:
     return n.value
 
 
+# the conv epilogue launches that the main-path phases counted and checked
+epilogue_launches = []
+
+
+def check_epilogues(tag: str, model, forwards: int) -> None:
+    """Fails unless ``conv_epilogue.launches``, set to 0 before the run,
+    is 2 for each ConvBlock of ``model`` in each of its ``forwards`` eval
+    forwards: every BatchNorm + ReLU (+ pool) of the stack ran as the
+    kernel.  A training run gives ``forwards`` 0: no launch."""
+    from sed_tpu_torch.models.blocks import ConvBlock
+    from sed_tpu_torch.ops.conv_epilogue import conv_epilogue
+    blocks = sum(isinstance(m, ConvBlock) for m in model.modules())
+    want = 2 * blocks * forwards
+    assert conv_epilogue.launches == want, (
+        f'{tag}: {conv_epilogue.launches} conv epilogue launches, not '
+        f'{want} ({forwards} eval forwards of {blocks} ConvBlocks)')
+    epilogue_launches.append(want)
+
+
 def decode_profile(dequant_wire, batch, tag: str) -> int:
     """Launches of one wire decode of ``batch`` (``graph_launches``) and
     its time between CUDA events (median of 20, the host's launch time
@@ -510,6 +542,87 @@ def adpcm_bound_ms(rows: int, width: int, samples: int, bits: int) -> tuple:
     ops_ms = ops / INT32_OPS_PER_S * 1e3
     return max(ops_ms, bytes_ms), ('operations' if ops_ms > bytes_ms
                                    else 'bytes'), ops_ms, bytes_ms
+
+
+def epilogue_bound_ms(batch: int, channels: int, height: int, width: int,
+                      pool) -> float:
+    """The least time an H100 SXM could take for one conv epilogue: each
+    input float read once, each output float written once, and the four
+    (channels,) statistics, over 3.35 TB/s (its ~3 operations an element
+    are far below 67 TFLOP/s)."""
+    out = height // pool[0] * (width // pool[1])
+    nbytes = 4 * (batch * channels * (height * width + out) + 4 * channels)
+    return nbytes / 3.35e12 * 1e3
+
+
+def epilogue_checks(card: str, dev, batch: int = 32,
+                    frames: int = 501) -> dict:
+    """The conv epilogue kernel at the 8 epilogues of a ``batch`` x
+    ``frames``-frame forward of the 4-block stack (BatchNorm statistics
+    of trained magnitudes): against ``conv_epilogue_plain`` (relative
+    error, max |kernel - plain| over max |plain|, at most 1e-6; at a (2,
+    2) pool the kernel equals ``F.avg_pool2d`` of its own (1, 1) output
+    bit for bit), then timed by ``queued_ms`` (inputs read from device
+    memory, not L2) against the plain version's three aten kernels and
+    the bytes' bound.  Returns the JSON entry's numbers: the sums over
+    the 8 epilogues of a forward."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from sed_tpu_torch.ops import conv_epilogue as ce
+    gen = torch.Generator(device=dev).manual_seed(frames)
+    rng = np.random.RandomState(frames)
+    h, w, shapes = frames, 64, []
+    for i, c in enumerate((64, 128, 256, 512)):
+        pool = (1, 1) if i == 3 else (2, 2)
+        shapes += [(c, h, w, (1, 1)), (c, h, w, pool)]
+        h, w = h // pool[0], w // pool[1]
+    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    max_err = 0.0
+    for c, h, w, pool in shapes:
+        stats = [torch.from_numpy(rng.uniform(lo, hi, c).astype(
+            np.float32)).to(dev) for lo, hi in ((-1, 1), (0.01, 4),
+                                                (0.2, 2), (-1, 1))]
+        x = torch.randn(batch, c, h, w, device=dev, generator=gen) * 2
+        got = ce.conv_epilogue(x, *stats, 1e-5, pool)
+        want = ce.conv_epilogue_plain(x, *stats, 1e-5, pool)
+        torch.cuda.synchronize()
+        err = ((got - want).abs().max() / want.abs().max()).item()
+        max_err = max(max_err, err)
+        assert err <= 1e-6, f'conv epilogue {c} x {h} x {w} {pool}: {err}'
+        if pool == (2, 2):
+            y = ce.conv_epilogue(x, *stats, 1e-5, (1, 1))
+            assert torch.equal(got.view(torch.int32),
+                               F.avg_pool2d(y, pool).view(torch.int32))
+        # queued behind a spin kernel, so that the wrapper's host time is
+        # not timed, over copies of x that together exceed the 50 MB L2:
+        # every launch reads its input from device memory
+        copies = itertools.cycle([x] + [x.clone() for _ in range(
+            -(-150_000_000 // (4 * x.numel())) - 1)])
+        times = {'kernel': [], 'plain': []}
+        for name in ('kernel', 'plain', 'kernel', 'plain'):
+            fn = ce.conv_epilogue if name == 'kernel' else \
+                ce.conv_epilogue_plain
+            times[name].append(queued_ms(
+                lambda: fn(next(copies), *stats, 1e-5, pool)))
+        ms, plain_ms = min(times['kernel']), min(times['plain'])
+        bound = epilogue_bound_ms(batch, c, h, w, pool)
+        total['ms'] += ms
+        total['plain_ms'] += plain_ms
+        total['bound_ms'] += bound
+        print(f'[6] conv epilogue {batch} x {c} x {h} x {w} pool {pool} on '
+              f'{card}: kernel {times["kernel"]} ms, plain {times["plain"]} '
+              f'ms (20 calls queued, each side twice, in turns; plain = '
+              f'cuDNN BatchNorm, clamp, avg_pool2d); bound {bound:.5f} ms by '
+              f'bytes, kernel at {bound / ms:.4f} of it; relative error '
+              f'{err!r}')
+        del x, got, want, copies
+    share = total['bound_ms'] / total['ms']
+    print(f'[6] conv epilogue, the 8 of a {batch} x {frames}-frame forward: '
+          f'kernel {total["ms"]:.5f} ms, plain {total["plain_ms"]:.5f} ms, '
+          f'bound {total["bound_ms"]:.5f} ms ({share:.4f} of it); max '
+          f'relative error {max_err!r}')
+    return {**total, 'bound_by': 'bytes', 'max_rel_err': max_err}
 
 
 def adpcm_kernel_checks(card: str, dev, signals, wires) -> tuple:
@@ -794,6 +907,7 @@ def train_phase(card: str, dev, cfg, pcm):
     from sed_tpu_torch.cli import common
     from sed_tpu_torch.compat.from_flax import load_checkpoint
     from sed_tpu_torch.dsp.frontend import logmel_plain
+    from sed_tpu_torch.ops.conv_epilogue import conv_epilogue
     from sed_tpu_torch.ops.logmel_kernel import fused_logmel
     from sed_tpu_torch.serve.engine import SedInferenceEngine
     from sed_tpu_torch.train.checkpoint import save_best_checkpoint
@@ -831,6 +945,7 @@ def train_phase(card: str, dev, cfg, pcm):
                               size=2, device=dev)
     torch.cuda.reset_peak_memory_stats(dev)
     fused_logmel.launches = 0
+    conv_epilogue.launches = 0
     losses = []
     for i in range(25):
         if i == 5:
@@ -841,6 +956,7 @@ def train_phase(card: str, dev, cfg, pcm):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = fused_logmel.launches
+    check_epilogues('[13] training', state.model, 0)
     losses = torch.stack(losses).cpu()
     peak = torch.cuda.max_memory_allocated(dev)
     print(f'[13] train {model_type} on {card}: weak {WEAK_BS} + strong '
@@ -1004,6 +1120,7 @@ def families_phase(card: str, dev, cfg, pcm) -> int:
     from sed_tpu_torch.cli import common
     from sed_tpu_torch.compat.bench_weights import seeded_model
     from sed_tpu_torch.compat.from_flax import load_checkpoint
+    from sed_tpu_torch.ops.conv_epilogue import conv_epilogue
     from sed_tpu_torch.ops.logmel_kernel import fused_logmel
     from sed_tpu_torch.serve.engine import SedInferenceEngine, window_starts
     from sed_tpu_torch.serve.streaming import StreamingSed
@@ -1027,9 +1144,11 @@ def families_phase(card: str, dev, cfg, pcm) -> int:
         t0 = time.perf_counter()
         gpu, cpu = engines(name)
         fused_logmel.launches = 0
+        conv_epilogue.launches = 0
         ev_gpu, xml_gpu = gpu.predict_clips(pcm)
         launched = fused_logmel.launches
         assert launched > 0, f'{name} did not launch the log-mel kernel'
+        check_epilogues(f'[14] {name}', gpu.model, launched)
         total_launches += launched
         ev_cpu, xml_cpu = cpu.predict_clips(pcm)
         events = check_events(name, ev_gpu, ev_cpu)
@@ -1080,9 +1199,11 @@ def families_phase(card: str, dev, cfg, pcm) -> int:
     wgpu = SedInferenceEngine(gpu.model, cfg, dev, **kw)
     wcpu = SedInferenceEngine(cpu.model, cfg, 'cpu', **kw)
     fused_logmel.launches = 0
+    conv_epilogue.launches = 0
     ev_gpu = wgpu.predict_clips_windowed(clips10, names10, 10.0, step)
     launched = fused_logmel.launches
     assert launched > 0, 'the Conformer windowed path launched no kernel'
+    check_epilogues('[14] windowed', wgpu.model, launched)
     total_launches += launched
     events = check_events('windowed', ev_gpu, wcpu.predict_clips_windowed(
         clips10, names10, 10.0, step))
@@ -1099,6 +1220,7 @@ def families_phase(card: str, dev, cfg, pcm) -> int:
     rng = np.random.RandomState(12)
     sess = StreamingSed(gpu, 'stream')
     fused_logmel.launches = 0
+    conv_epilogue.launches = 0
     pos, feeds, got = 0, 0, []
     while pos < len(stream):
         size = int(rng.uniform(0.05, 3.0) * cfg.sample_rate)
@@ -1109,6 +1231,7 @@ def families_phase(card: str, dev, cfg, pcm) -> int:
     got += sess.flush()
     launched = fused_logmel.launches
     assert launched > 0, 'the Conformer stream did not launch the kernel'
+    check_epilogues('[14] stream', gpu.model, launched)
     total_launches += launched
     events = check_events('stream', [got],
                           [cpu.predict_waveform(stream, 'stream')])
@@ -1142,6 +1265,7 @@ def families_phase(card: str, dev, cfg, pcm) -> int:
                                   size=2, device=dev)
         torch.cuda.reset_peak_memory_stats(dev)
         fused_logmel.launches = 0
+        conv_epilogue.launches = 0
         losses = []
         for i in range(12):
             if i == 2:
@@ -1152,6 +1276,7 @@ def families_phase(card: str, dev, cfg, pcm) -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launched = fused_logmel.launches
+        check_epilogues(f'[14] train {name}', state.model, 0)
         total_launches += launched
         losses = torch.stack(losses).cpu()
         peak = torch.cuda.max_memory_allocated(dev)
@@ -1260,6 +1385,7 @@ def gamma_phase(card: str, dev) -> None:
     from sed_tpu_torch.dsp.cqt import CQTFrontend
     from sed_tpu_torch.dsp.frontend import stft
     from sed_tpu_torch.eval.evaluator import Evaluator
+    from sed_tpu_torch.ops.conv_epilogue import conv_epilogue
     from sed_tpu_torch.ops.logmel_kernel import fused_logmel
     from sed_tpu_torch.train.checkpoint import save_best_checkpoint
     from sed_tpu_torch.train.prefetch import device_prefetch
@@ -1312,6 +1438,7 @@ def gamma_phase(card: str, dev) -> None:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         fused_logmel.launches = 0
+        conv_epilogue.launches = 0
         losses = []
         for i in range(13):
             if i == 3:
@@ -1322,6 +1449,7 @@ def gamma_phase(card: str, dev) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = fused_logmel.launches
+        check_epilogues('[15] gamma training', state.model, 0)
         losses = torch.stack(losses).cpu()
         peak = torch.cuda.max_memory_allocated(dev)
         upload = sum(v.nbytes for v in (weak['waveform'],
@@ -1368,8 +1496,10 @@ def gamma_phase(card: str, dev) -> None:
     loader = [{'audio_name': np.array(names[i:i + 12]),
                'waveform': feats[i:i + 12]} for i in range(0, 32, 12)]
     fused_logmel.launches = 0
+    conv_epilogue.launches = 0
     out_gpu = Evaluator(state.model, dev).forward(loader)
     assert fused_logmel.launches == 0
+    check_epilogues('[15] gamma Evaluator', state.model, len(loader))
     out_cpu = Evaluator(copy.deepcopy(state.model).cpu(),
                         'cpu').forward(loader)
     assert out_gpu['framewise_output'].shape == (32, 1000, 25)
@@ -1492,6 +1622,7 @@ def timed_train(model_type, cfg, dev, compute_dtype=None, steps: int = 25,
     ``run(weak, strong, generator)``, the losses, the skipped steps, the
     wall of the timed steps, the peak memory and the kernel launches."""
     import torch
+    from sed_tpu_torch.ops.conv_epilogue import conv_epilogue
     from sed_tpu_torch.ops.logmel_kernel import fused_logmel
     from sed_tpu_torch.train.prefetch import device_prefetch
     from sed_tpu_torch.train.step import init_loss_scale
@@ -1513,6 +1644,7 @@ def timed_train(model_type, cfg, dev, compute_dtype=None, steps: int = 25,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     fused_logmel.launches = 0
+    conv_epilogue.launches = 0
     losses, skipped = [], 0
     for i in range(steps):
         if i == warmup:
@@ -1524,6 +1656,7 @@ def timed_train(model_type, cfg, dev, compute_dtype=None, steps: int = 25,
         skipped += not metrics.get('grads_finite', True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    check_epilogues(f'{model_type} training', state.model, 0)
     out = dict(init=init, state=state, run=run, generator=generator,
                batch=next(batches), losses=torch.stack(losses).cpu(),
                skipped=skipped, wall=wall, launches=fused_logmel.launches,
@@ -1537,6 +1670,7 @@ def bf16_phase(card: str, dev, cfg, pcm, gpu) -> int:
     import numpy as np
     import torch
     from sed_tpu_torch.compat.from_flax import load_npz
+    from sed_tpu_torch.ops.conv_epilogue import conv_epilogue
     from sed_tpu_torch.ops.logmel_kernel import fused_logmel
     from sed_tpu_torch.serve.engine import SedInferenceEngine
     model_type = 'Cnn_9layers_Gru_FrameAtt'
@@ -1545,9 +1679,11 @@ def bf16_phase(card: str, dev, cfg, pcm, gpu) -> int:
                                       compute_dtype=torch.bfloat16),
                              cfg, dev, batch_size=32)
     fused_logmel.launches = 0
+    conv_epilogue.launches = 0
     ev_b, _ = b16.predict_clips(pcm)
     launches = fused_logmel.launches
     assert launches > 0, 'the bf16 path did not launch the log-mel kernel'
+    check_epilogues('[16] bf16', b16.model, launches)
     ev_f, _ = gpu.predict_clips(pcm)
     fw_b, cw_b = b16.infer_framewise(pcm)
     fw_f, cw_f = gpu.infer_framewise(pcm)
@@ -1687,6 +1823,7 @@ def _dp_rank(rank: int, n: int, store: str, model_type: str, weak: dict,
     import torch
     import torch.distributed as dist
     from sed_tpu_torch.config import AUDIO_16K
+    from sed_tpu_torch.ops.conv_epilogue import conv_epilogue
     from sed_tpu_torch.ops.logmel_kernel import fused_logmel
     from sed_tpu_torch.parallel.mesh import shard_batch
     from sed_tpu_torch.serve.engine import disable_tf32
@@ -1699,8 +1836,10 @@ def _dp_rank(rank: int, n: int, store: str, model_type: str, weak: dict,
         step = train_step(state, AUDIO_16K, group=dist.group.WORLD)
         w, s = shard_batch(weak, device=dev), shard_batch(strong, device=dev)
         fused_logmel.launches = 0
+        conv_epilogue.launches = 0
         metrics = step(w, [s], torch.Generator(device=dev).manual_seed(seed))
         torch.cuda.synchronize()
+        check_epilogues(f'[17] rank {rank}', state.model, 0)
         return {'launches': fused_logmel.launches,
                 'rows': (len(w['waveform']), len(s['waveform'])),
                 'loss': metrics['loss'].item(),
@@ -1718,6 +1857,7 @@ def parallel_phase(card: str, dev, cfg, pcm, gpu, adpcm) -> int:
     import numpy as np
     import torch
     import torch.distributed as dist
+    from sed_tpu_torch.ops.conv_epilogue import conv_epilogue
     from sed_tpu_torch.ops.logmel_kernel import fused_logmel
     from sed_tpu_torch.parallel.distributed import spawn_ranks
     from sed_tpu_torch.parallel.dryrun import dryrun_multichip
@@ -1730,9 +1870,11 @@ def parallel_phase(card: str, dev, cfg, pcm, gpu, adpcm) -> int:
     launches = 0
     for name, wire in (('int16', pcm), ('adpcm4', adpcm)):
         fused_logmel.launches = 0
+        conv_epilogue.launches = 0
         got = two.predict_clips(wire)
         launched = fused_logmel.launches
         assert launched > 0, f'the replicas did not launch the kernel ({name})'
+        check_epilogues(f'[17] (a) replicas {name}', gpu.model, launched)
         launches += launched
         assert got == gpu.predict_clips(wire), \
             f'{name}: the replicated engine differs from one device'
@@ -1774,8 +1916,10 @@ def parallel_phase(card: str, dev, cfg, pcm, gpu, adpcm) -> int:
                 step = train_step(state, cfg, group=dist.group.WORLD
                                   if tag == 'dp' else None)
                 fused_logmel.launches = 0
+                conv_epilogue.launches = 0
                 losses[tag] = step(to(weak), [to(strong)], torch.Generator(
                     device=dev).manual_seed(seed))['loss'].item()
+                check_epilogues(f'[17] (b) {tag}', state.model, 0)
                 grads[tag] = {k: p.grad.cpu()
                               for k, p in state.model.named_parameters()}
                 print(f'[17] (b) {tag} step at weak {WEAK_BS} + strong '
@@ -1876,6 +2020,7 @@ def resident_phase(card: str, dev, cfg, clips, gpu, cpu) -> tuple:
     from sed_tpu_torch.data import audio_io
     from sed_tpu_torch.native import adpcm_native
     from sed_tpu_torch.ops import wire as wire_ops
+    from sed_tpu_torch.ops.conv_epilogue import conv_epilogue
     from sed_tpu_torch.ops.logmel_kernel import fused_logmel
     sr = cfg.sample_rate
     n = len(clips)
@@ -1888,13 +2033,16 @@ def resident_phase(card: str, dev, cfg, clips, gpu, cpu) -> tuple:
     launches = 0
 
     def counted(fn, what: str):
-        """``fn()`` with the log-mel count set to 0 just before and read
-        just after; fails if the kernel was not launched."""
+        """``fn()`` with the log-mel and epilogue counts set to 0 just
+        before and read just after; fails if the log-mel kernel was not
+        launched or an epilogue of a forward was not the kernel."""
         nonlocal launches
         fused_logmel.launches = 0
+        conv_epilogue.launches = 0
         out = fn()
         launched = fused_logmel.launches
         assert launched > 0, f'{what} did not launch the log-mel kernel'
+        check_epilogues(f'[18] {what}', gpu.model, launched)
         launches += launched
         return out, launched
 
@@ -2119,6 +2267,7 @@ def learning_phase(card: str, dev, cfg, pcm) -> tuple:
     from sed_tpu_torch.data.dataset import DataLoader, TestSampler
     from sed_tpu_torch.eval.evaluator import Evaluator
     from sed_tpu_torch.ops import wire as wire_ops
+    from sed_tpu_torch.ops.conv_epilogue import conv_epilogue
     from sed_tpu_torch.ops.logmel_kernel import fused_logmel
     from sed_tpu_torch.serve.engine import SedInferenceEngine
     gru = 'Cnn_9layers_Gru_FrameAtt'
@@ -2126,11 +2275,14 @@ def learning_phase(card: str, dev, cfg, pcm) -> tuple:
     launches = {'logmel': 0, 'adpcm': 0}
 
     def counted(fn, *args, **kwargs):
-        """``fn``'s result, its launches of both kernels added up."""
+        """``fn``'s result and its launches of the log-mel, ADPCM and
+        epilogue kernels; the first two added up."""
         fused_logmel.launches = 0
         wire_ops._adpcm_decode.launches = 0
+        conv_epilogue.launches = 0
         out = fn(*args, **kwargs)
-        n = fused_logmel.launches, wire_ops._adpcm_decode.launches
+        n = (fused_logmel.launches, wire_ops._adpcm_decode.launches,
+             conv_epilogue.launches)
         launches['logmel'] += n[0]
         launches['adpcm'] += n[1]
         return out, n
@@ -2161,8 +2313,9 @@ def learning_phase(card: str, dev, cfg, pcm) -> tuple:
 
     # -- (c) sed_tpu's trained checkpoint on the test split ------------------
     ckpt = os.path.join(REPO, 'tools', 'bench_checkpoint.npz')
-    bench, n = counted(evaluate, load_npz(ckpt, gru, cfg, dev), dev,
-                       'bench_gpu')
+    bench_model = load_npz(ckpt, gru, cfg, dev)
+    bench, n = counted(evaluate, bench_model, dev, 'bench_gpu')
+    check_epilogues('[19] (c) Evaluator', bench_model, n[0])
     bench_cpu = evaluate(load_npz(ckpt, gru, cfg, 'cpu'), 'cpu', 'bench_cpu')
     print(f'[19] (c) tools/bench_checkpoint.npz on the '
           f'{len(corpus.splits["testing"]["audio_name"])} test clips, '
@@ -2207,6 +2360,11 @@ def learning_phase(card: str, dev, cfg, pcm) -> tuple:
                       for k in ('strong_validation', 'testing'))
         assert n[0] >= 2 * run.steps + evals * batches, \
             f'{tag}: {n[0]} log-mel launches for {run.steps} steps'
+        # the evaluations' forwards of the 4-block stack, 8 each; the
+        # training steps none
+        assert n[2] % 8 == 0 and n[2] >= 8 * evals * batches, \
+            f'{tag}: {n[2]} conv epilogue launches in {evals} evaluations'
+        epilogue_launches.append(n[2])
         return run, n
 
     def falls(tag, run):
@@ -2247,11 +2405,13 @@ def learning_phase(card: str, dev, cfg, pcm) -> tuple:
     cpu = SedInferenceEngine(load_npz(out, gru, cfg, 'cpu'), cfg, 'cpu',
                              batch_size=32)
     (ev_gpu, xml_gpu), n = counted(gpu.predict_clips, pcm)
+    check_epilogues('[19] (h) predict_clips', gpu.model, n[0])
     ev_cpu, xml_cpu = cpu.predict_clips(pcm)
     assert n[0] > 0, 'predict_clips did not launch the log-mel kernel'
     assert ev_gpu == ev_cpu and xml_gpu == xml_cpu, \
         'the exported checkpoint serves differently on the card and the CPU'
-    exported, _ = counted(evaluate, gpu.model, dev, 'exported')
+    exported, n = counted(evaluate, gpu.model, dev, 'exported')
+    check_epilogues('[19] (h) Evaluator', gpu.model, n[0])
     best = fp32.best('test')
     print(f'[19] (h) best checkpoint exported by save_variables_npz '
           f'({os.path.getsize(out) / 1e6:.2f} MB): predict_clips of '
@@ -2282,6 +2442,7 @@ def learning_phase(card: str, dev, cfg, pcm) -> tuple:
         conf.best_checkpoint, conformer, cfg, dev), cfg, dev, batch_size=32)
     (ev, _), n = counted(engine.predict_clips, pcm)
     assert n[0] > 0, 'predict_clips did not launch the log-mel kernel'
+    check_epilogues('[19] (f) Conformer predict_clips', engine.model, n[0])
     rates, _ = clips_per_s(engine, np.concatenate([pcm] * 8))
     print(f'[19] (f) trained Conformer predict_clips on {card}: '
           f'{sum(map(len, ev)) / len(pcm):.3f} events a clip on the '
@@ -2312,6 +2473,7 @@ def main() -> None:
     from sed_tpu_torch.compat.from_flax import load_npz
     from sed_tpu_torch.data import audio_io
     from sed_tpu_torch.dsp.frontend import logmel_plain
+    from sed_tpu_torch.ops.conv_epilogue import conv_epilogue
     from sed_tpu_torch.ops.logmel_kernel import fused_logmel
     from sed_tpu_torch.serve.engine import (SedInferenceEngine, disable_tf32,
                                             tf32_flags, window_starts)
@@ -2394,6 +2556,12 @@ def main() -> None:
               'no result')
         return
 
+    if '--epilogue-only' in sys.argv[1:]:
+        epilogue_checks(card, dev)
+        print('[6] conv epilogue checks done; phases 3-19 were not run: no '
+              'result')
+        return
+
     if '--resident-only' in sys.argv[1:]:
         cfg = config.AUDIO_16K
         ckpt = os.path.join(REPO, 'tools', 'bench_checkpoint.npz')
@@ -2458,13 +2626,16 @@ def main() -> None:
     pcm = (np.clip(clips, -1, 1) * 32767).astype(np.int16)
 
     fused_logmel.launches = 0
+    conv_epilogue.launches = 0
     ev_gpu, xml_gpu = gpu.predict_clips(pcm)
     launches = fused_logmel.launches
+    epilogues = conv_epilogue.launches
     ev_pcm = ev_gpu
     print(f'[4] predict_clips on {dev}: {len(pcm)} clips, '
           f'{sum(map(len, ev_gpu))} events, log-mel kernel launches '
-          f'{launches}')
+          f'{launches}, conv epilogue launches {epilogues}')
     assert launches > 0, 'the main path did not launch the log-mel kernel'
+    check_epilogues('[4] predict_clips', gpu.model, launches)
     ev_cpu, xml_cpu = cpu.predict_clips(pcm)
     assert ev_gpu == ev_cpu, 'events differ between GPU and CPU'
     assert xml_gpu == xml_cpu, 'XML differs between GPU and CPU'
@@ -2521,6 +2692,7 @@ def main() -> None:
           f'{[round(r, 1) for r in rates]} clips/s (3 runs), '
           f'{n_events} events')
     profile_batch(gpu, pcm[:32], '6')
+    epilogue = epilogue_checks(card, dev)
 
     # -- 7. the Transformer on the card ------------------------------------
     from sed_tpu_torch.compat.bench_weights import transformer_variables
@@ -2535,9 +2707,11 @@ def main() -> None:
     tgpu = SedInferenceEngine(transformer(dev), cfg, dev, batch_size=32)
     tcpu = SedInferenceEngine(transformer('cpu'), cfg, 'cpu', batch_size=32)
     fused_logmel.launches = 0
+    conv_epilogue.launches = 0
     ev_gpu, xml_gpu = tgpu.predict_clips(pcm)
     t_launches = fused_logmel.launches
     assert t_launches > 0, 'the Transformer path did not launch the kernel'
+    check_epilogues('[7] Transformer', tgpu.model, t_launches)
     ev_cpu, xml_cpu = tcpu.predict_clips(pcm)
     assert ev_gpu == ev_cpu, 'Transformer events differ between GPU and CPU'
     assert xml_gpu == xml_cpu, 'Transformer XML differs between GPU and CPU'
@@ -2588,9 +2762,12 @@ def main() -> None:
             wgpu = SedInferenceEngine(gpu.model, cfg, dev, **kw)
             wcpu = SedInferenceEngine(cpu.model, cfg, 'cpu', **kw)
             fused_logmel.launches = 0
+            conv_epilogue.launches = 0
             ev_gpu = wgpu.predict_clips_windowed(clips10, names, 10.0, step)
             launched = fused_logmel.launches
             assert launched > 0, 'the windowed path did not launch the kernel'
+            check_epilogues(f'[8] windowed {step, window}', wgpu.model,
+                            launched)
             w_launches += launched
             ev_cpu = wcpu.predict_clips_windowed(clips10, names, 10.0, step)
             assert ev_gpu == ev_cpu, f'windowed events differ at {step, window}'
@@ -2623,9 +2800,11 @@ def main() -> None:
                'waveform': clips10[i:i + 12]}
               for i in range(0, len(clips10), 12)]   # 12, 12, 8
     fused_logmel.launches = 0
+    conv_epilogue.launches = 0
     out_gpu = Evaluator(gpu.model, dev).forward(loader)
     e_launches = fused_logmel.launches
     assert e_launches > 0, 'the evaluator did not launch the kernel'
+    check_epilogues('[9] Evaluator', gpu.model, e_launches)
     out_cpu = Evaluator(cpu.model, 'cpu').forward(loader)
     assert out_gpu['framewise_output'].shape == (32, 1000, 25)
     assert list(out_gpu['audio_name']) == names
@@ -2674,9 +2853,11 @@ def main() -> None:
         buf = wires[name][:len(clips)]
         fused_logmel.launches = 0
         wire_ops._adpcm_decode.launches = 0
+        conv_epilogue.launches = 0
         ev_gpu, xml_gpu = gpu.predict_clips(buf)
         launched = fused_logmel.launches
         assert launched > 0, f'the {name} wire did not launch the kernel'
+        check_epilogues(f'[10] {name}', gpu.model, launched)
         v_launches += launched
         if name == 'adpcm4':
             a_launches = wire_ops._adpcm_decode.launches
@@ -2707,10 +2888,12 @@ def main() -> None:
 
     # -- 11. predict_clips_stream ------------------------------------------
     fused_logmel.launches = 0
+    conv_epilogue.launches = 0
     stream_out = gpu.predict_clips_stream(
         bench[i:i + 32] for i in range(0, len(bench), 32))
     s_launches = fused_logmel.launches
     assert s_launches > 0, 'predict_clips_stream did not launch the kernel'
+    check_epilogues('[11] predict_clips_stream', gpu.model, s_launches)
     assert stream_out == gpu.predict_clips(bench), \
         'predict_clips_stream differs from predict_clips'
     rates, n_events = clips_per_s(gpu, bench, stream_chunk=32)
@@ -2740,6 +2923,7 @@ def main() -> None:
     rng = np.random.RandomState(12)
     sess = StreamingSed(gpu, 'stream')
     fused_logmel.launches = 0
+    conv_epilogue.launches = 0
     t0 = time.perf_counter()
     pos, feeds, early = 0, 0, []
     while pos < len(stream):
@@ -2751,6 +2935,7 @@ def main() -> None:
     wall = time.perf_counter() - t0
     r_launches = fused_logmel.launches
     assert r_launches > 0, 'StreamingSed did not launch the kernel'
+    check_epilogues('[12] StreamingSed', gpu.model, r_launches)
 
     def keys(evs):
         return sorted((e['event_label'], round(e['onset'], 4),
@@ -2839,6 +3024,15 @@ def main() -> None:
         'bound_ms': adpcm_times[4, 32][2][0],
         'bound_by': adpcm_times[4, 32][2][1],
         # no PyTorch call decodes IMA ADPCM
+        'library_ms': None}, {
+        'name': 'conv_epilogue', 'route': 'cuda',
+        'source': 'sed_tpu_torch/csrc/conv_epilogue.cu',
+        # sed_tpu leaves BatchNorm, ReLU and the pool to XLA's fusion
+        'replaces': None,
+        'launches': sum(epilogue_launches),
+        # the sums over the 8 epilogues of a 32 x 5 s forward
+        **epilogue,
+        # no single PyTorch call computes BatchNorm, ReLU and the pool
         'library_ms': None}]}))
     print(card_line())
     print(json.dumps({'ok': True, 'device': {

@@ -5,10 +5,14 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 repository root, then loaded with ``ctypes``.  The library's file name
 carries a hash of every source under ``csrc/`` (``.cu`` and the ``.cuh``
 headers they include) and of the flags, so an edited source or header
-is rebuilt and a stale library is never loaded.  The compiler's output
+is rebuilt and a stale library is never loaded.  The first ``load`` that
+finds its library missing compiles every missing one at once, one
+``nvcc`` each, so that a fresh checkout or an edited source costs one
+build's wall time, not one a library.  The compiler's output
 (ptxas registers and spills) is kept beside the library.  Nothing is
 built when the module is imported; there is no fallback when ``nvcc``
-is missing.
+is missing.  ``launch`` calls a library's C launch function on a
+device's current stream and raises on the error it returns.
 """
 
 from __future__ import annotations
@@ -19,7 +23,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, 'csrc')
@@ -72,37 +78,102 @@ def source_digest(csrc: str = CSRC, flags=NVCC_FLAGS) -> str:
     return h.hexdigest()[:16]
 
 
+def library_path(name: str) -> str:
+    """Where ``csrc/<name>.cu``'s library of the present sources lives."""
+    return os.path.join(BUILD_DIR,
+                        f'lib{name}-{source_digest(CSRC, NVCC_FLAGS)}.so')
+
+
+def _compile(name: str) -> float:
+    """Compile ``csrc/<name>.cu`` with ``nvcc``; its seconds."""
+    src = os.path.join(CSRC, f'{name}.cu')
+    path = library_path(name)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    # compile to a private file and rename: concurrent processes never
+    # load a half-written library
+    tmp = f'{path}.tmp.{os.getpid()}'
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, '-o', tmp, src],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f'nvcc failed on {src}:\n{proc.stderr}')
+        with open(tmp + '.log', 'w') as f:
+            f.write(proc.stdout + proc.stderr)
+        os.rename(tmp + '.log', path + '.log')
+        os.rename(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return time.perf_counter() - t0
+
+
+_build_lock = threading.Lock()
+_build_seconds = {}   # name -> nvcc seconds of this process's build
+_build_errors = {}    # name -> the error of this process's failed build
+
+
+def _build_missing() -> None:
+    """Compile every ``csrc/*.cu`` whose library is not built yet, one
+    ``nvcc`` each, all at once: a forward that needs two libraries waits
+    for the slower build, not for both in turn."""
+    with _build_lock:
+        names = sorted(f[:-3] for f in os.listdir(CSRC) if f.endswith('.cu')
+                       and not os.path.isfile(library_path(f[:-3])))
+        if not names:
+            return
+        with ThreadPoolExecutor(len(names)) as pool:
+            jobs = {n: pool.submit(_compile, n) for n in names}
+        for name, job in jobs.items():
+            try:
+                _build_seconds[name] = job.result()
+            except Exception as e:   # raised by load() of that library
+                _build_errors[name] = e
+
+
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> KernelLibrary:
-    """Compile ``csrc/<name>.cu`` (if not built yet) and load it."""
-    src = os.path.join(CSRC, f'{name}.cu')
-    path = os.path.join(BUILD_DIR,
-                        f'lib{name}-{source_digest(CSRC, NVCC_FLAGS)}.so')
-    log, seconds = '', 0.0
+    """Load ``csrc/<name>.cu``'s library, compiling every library not
+    built yet first."""
+    path = library_path(name)
+    if not os.path.isfile(path):
+        _build_errors.pop(name, None)
+        _build_missing()
+        if name in _build_errors:
+            raise _build_errors[name]
+    log = ''
     if os.path.isfile(path + '.log'):
         with open(path + '.log') as f:
             log = f.read()
-    if not os.path.isfile(path):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        # compile to a private file and rename: concurrent processes never
-        # load a half-written library
-        tmp = f'{path}.tmp.{os.getpid()}'
-        t0 = time.perf_counter()
-        try:
-            proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, '-o', tmp, src],
-                                  capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f'nvcc failed on {src}:\n{proc.stderr}')
-            log = proc.stdout + proc.stderr
-            with open(tmp + '.log', 'w') as f:
-                f.write(log)
-            os.rename(tmp + '.log', path + '.log')
-            os.rename(tmp, path)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-        seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(path)
     lib.sed_cuda_error_string.restype = ctypes.c_char_p
     lib.sed_cuda_error_string.argtypes = [ctypes.c_int]
-    return KernelLibrary(name, path, lib, log, seconds)
+    return KernelLibrary(name, path, lib, log, _build_seconds.get(name, 0.0))
+
+
+@functools.lru_cache(maxsize=None)
+def entry(name: str, argtypes: tuple):
+    """(library, C function ``sed_<name>``) of ``csrc/<name>.cu``:
+    built, loaded and bound to ``argtypes`` once.  The function returns
+    a cudaError_t as int."""
+    kl = load(name)
+    fn = getattr(kl.lib, f'sed_{name}')
+    fn.restype = ctypes.c_int
+    fn.argtypes = list(argtypes)
+    return kl, fn
+
+
+def launch(name: str, argtypes: tuple, device, *args) -> None:
+    """``sed_<name>(*args, stream)`` on ``device``'s current stream
+    (``argtypes`` ends with the stream's); raises RuntimeError on the
+    error it returns."""
+    import torch
+    kl, fn = entry(name, argtypes)
+    if device.index == torch.cuda.current_device():
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f'{name} kernel launch failed: '
+                           f'{kl.error_string(rc)} ({rc})')

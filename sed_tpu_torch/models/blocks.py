@@ -9,8 +9,10 @@ r * (W_hn h + b_hn))`` are what ``sed_tpu`` stores and computes.
 
 ``BatchNorm`` keeps flax's running statistics in training mode (over
 the global batch of a process group when it has one), ``ConvBlock``
-takes ``sed_tpu``'s bf16 compute dtype, and ``init_weights`` draws a
-fresh model from ``sed_tpu``'s initialisers.
+takes ``sed_tpu``'s bf16 compute dtype and, in eval mode on the card,
+runs each convolution's BatchNorm, ReLU and pool as one kernel
+(``epilogue``), and ``init_weights`` draws a fresh model from
+``sed_tpu``'s initialisers.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from torch import nn
 from torch.nn.modules.batchnorm import _BatchNorm
 
 from sed_tpu_torch.augment.functional import rand_rows
+from sed_tpu_torch.ops import conv_epilogue
 from sed_tpu_torch.utils.profiling import span
 
 
@@ -242,7 +245,10 @@ class ConvBlock(nn.Module):
     dtype (``sed_tpu/models/blocks.py:65-72``); BatchNorm, ReLU and the
     pooling stay float32.  Not ``torch.autocast``: that would also cast
     the linear layers, GRU and attention products after the stack, which
-    ``sed_tpu`` keeps in float32."""
+    ``sed_tpu`` keeps in float32.
+
+    Each convolution's BatchNorm and ReLU run as one ``epilogue``; a
+    (2, 2) 'avg' pool runs in the second's."""
 
     def __init__(self, in_channels: int, out_channels: int, dtype=None):
         super().__init__()
@@ -255,10 +261,12 @@ class ConvBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, pool_size=(2, 2),
                 pool_type: str = 'avg') -> torch.Tensor:
-        x = F.relu(self.bn1(self.conv1(x)))
-        x = F.relu(self.bn2(self.conv2(x)))
-        if tuple(pool_size) == (1, 1):
-            return x
+        pool_size = tuple(pool_size)
+        x = epilogue(self.conv1(x), self.bn1)
+        if pool_size == (1, 1) or (pool_size == (2, 2)
+                                   and pool_type == 'avg'):
+            return epilogue(self.conv2(x), self.bn2, pool_size)
+        x = epilogue(self.conv2(x), self.bn2)
         if pool_type == 'avg':
             return F.avg_pool2d(x, pool_size)
         if pool_type == 'max':
@@ -266,6 +274,23 @@ class ConvBlock(nn.Module):
         if pool_type == 'avg+max':
             return F.avg_pool2d(x, pool_size) + F.max_pool2d(x, pool_size)
         raise ValueError(f'Incorrect pool_type: {pool_type}')
+
+
+def epilogue(x: torch.Tensor, bn: BatchNorm, pool=(1, 1)) -> torch.Tensor:
+    """``relu(bn(x))``, average-pooled by ``pool`` ((1, 1) or (2, 2)).
+
+    Training mode (batch statistics) and autograd (a gradient wanted for
+    ``x`` or ``bn``'s affine parameters) run ``bn``, ``F.relu`` and
+    ``F.avg_pool2d``.  Otherwise ``ops/conv_epilogue.conv_epilogue`` runs
+    it: the same ops on a CPU tensor, one launch of its kernel (in a
+    ``sed::conv.epilogue`` span) on a card tensor, and a ValueError for a
+    card tensor the kernel does not take."""
+    if bn.training or (torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, bn.weight, bn.bias))):
+        x = F.relu(bn(x))
+        return x if pool == (1, 1) else F.avg_pool2d(x, pool)
+    return conv_epilogue.conv_epilogue(x, bn.running_mean, bn.running_var,
+                                       bn.weight, bn.bias, bn.eps, pool)
 
 
 class AttBlock(nn.Module):

@@ -252,38 +252,14 @@ def _adpcm_decode_plain(wav: torch.Tensor, samples: int, bits: int
 
 _ARGTYPES = {
     # pool, pool words, offsets, out, clips, samples, stream
-    'v6_decode': [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+    'v6_decode': (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                  ctypes.c_void_p],
+                  ctypes.c_void_p),
     # wav, clips, width, bits, out, samples, stream
-    'adpcm_decode': [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+    'adpcm_decode': (ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                      ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                     ctypes.c_void_p],
+                     ctypes.c_void_p),
 }
-
-
-@functools.lru_cache(maxsize=None)
-def _kernel(name: str):
-    """(library, launch function) of ``csrc/<name>.cu``: built, loaded
-    and its C function bound once."""
-    kl = _build.load(name)
-    fn = getattr(kl.lib, f'sed_{name}')
-    fn.restype = ctypes.c_int
-    fn.argtypes = _ARGTYPES[name]
-    return kl, fn
-
-
-def _launch(name: str, device: torch.device, *args) -> None:
-    """Launch kernel ``name`` on ``device``'s current stream."""
-    kl, fn = _kernel(name)
-    if device.index == torch.cuda.current_device():
-        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-    else:
-        with torch.cuda.device(device):
-            rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f'{name} kernel launch failed: '
-                           f'{kl.error_string(rc)} ({rc})')
 
 
 def _adpcm_decode(wav: torch.Tensor, samples: int, bits: int
@@ -312,8 +288,9 @@ def _adpcm_decode(wav: torch.Tensor, samples: int, bits: int
                          f'does not hold {samples} samples')
     out = torch.empty((b, samples), dtype=torch.float32, device=wav.device)
     if b:
-        _launch('adpcm_decode', wav.device, wav.data_ptr(), b, width, bits,
-                out.data_ptr(), samples)
+        _build.launch('adpcm_decode', _ARGTYPES['adpcm_decode'],
+                      wav.device, wav.data_ptr(), b, width, bits,
+                      out.data_ptr(), samples)
         _adpcm_decode.launches += 1
     return out
 
@@ -466,8 +443,9 @@ def dequant_v6_pool(pool: torch.Tensor, offsets: torch.Tensor,
     b = offsets.shape[0]
     out = torch.empty((b, samples), dtype=torch.float32, device=pool.device)
     if b:
-        _launch('v6_decode', pool.device, pool.data_ptr(), pool.shape[0],
-                offsets.data_ptr(), out.data_ptr(), b, samples)
+        _build.launch('v6_decode', _ARGTYPES['v6_decode'], pool.device,
+                      pool.data_ptr(), pool.shape[0], offsets.data_ptr(),
+                      out.data_ptr(), b, samples)
         dequant_v6_pool.launches += 1
     return out
 

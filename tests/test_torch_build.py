@@ -1,8 +1,13 @@
 """sed_tpu_torch/_build.py: the digest that names a built kernel library
 covers every source under ``csrc/`` and the flags, so an edited header
-is never served by a stale library.  No nvcc needed."""
+is never served by a stale library, and a missing library is built
+together with every other missing one.  No nvcc needed."""
 
 import os
+import threading
+import types
+
+import pytest
 
 from sed_tpu_torch import _build
 
@@ -53,3 +58,49 @@ def test_package_digest_covers_the_shipped_sources():
     assert 'logmel.cu' in names and 'mma_sm90.cuh' in names
     assert _build.source_digest() == _build.source_digest(_build.CSRC,
                                                           _build.NVCC_FLAGS)
+
+
+def test_a_missing_library_builds_every_missing_one_at_once(tmp_path,
+                                                            monkeypatch):
+    """``load`` of a missing library compiles each missing library in a
+    build of its own, all at the same time, and leaves a built one as it
+    is; a failed build raises in the ``load`` of its own library only."""
+    csrc = tmp_path / 'csrc'
+    csrc.mkdir()
+    for name in ('built', 'one', 'two', 'bad'):
+        (csrc / f'{name}.cu').write_text(f'// {name}\n')
+    (csrc / 'helpers.cuh').write_text('// not a library\n')
+    monkeypatch.setattr(_build, 'CSRC', str(csrc))
+    monkeypatch.setattr(_build, 'BUILD_DIR', str(tmp_path / 'build'))
+    monkeypatch.setattr(_build, '_build_seconds', {})
+    monkeypatch.setattr(_build, '_build_errors', {})
+    os.makedirs(_build.BUILD_DIR)
+    open(_build.library_path('built'), 'w').close()
+    together = threading.Barrier(2, timeout=30)
+    compiled = []
+
+    def compile_(name):
+        compiled.append(name)
+        if name == 'bad':
+            raise RuntimeError('nvcc failed on bad.cu')
+        together.wait()     # 'one' and 'two' build at once, or time out
+        path = _build.library_path(name)
+        with open(path + '.log', 'w') as f:
+            f.write(f'ptxas {name}\n')
+        open(path, 'w').close()
+        return 4.5
+
+    monkeypatch.setattr(_build, '_compile', compile_)
+    monkeypatch.setattr(_build.ctypes, 'CDLL', lambda path: types.
+                        SimpleNamespace(sed_cuda_error_string=types.
+                                        SimpleNamespace()))
+    one = _build.load.__wrapped__('one')
+    assert sorted(compiled) == ['bad', 'one', 'two']
+    assert (one.build_seconds, one.build_log) == (4.5, 'ptxas one\n')
+    two = _build.load.__wrapped__('two')
+    built = _build.load.__wrapped__('built')
+    assert (two.build_seconds, built.build_seconds) == (4.5, 0.0)
+    assert len(compiled) == 3
+    with pytest.raises(RuntimeError, match='nvcc failed on bad.cu'):
+        _build.load.__wrapped__('bad')
+    assert compiled[3:] == ['bad']

@@ -19,6 +19,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from sed_tpu_torch import config
 from sed_tpu_torch.compat.from_flax import load_npz
@@ -835,3 +836,187 @@ def test_cuda_no_fft_convolution_at_5s(device):
     fft = sorted(k for k in kernels if 'fft' in k.lower() or 'DSE::' in k
                  or 'complex' in k)
     assert not fft, fft
+
+
+# ---------------------------------------------------------------------------
+# csrc/conv_epilogue.cu: BatchNorm (eval), ReLU and the 2x2 average pool in
+# one pass.  Relative error: max |kernel - plain| over max |plain| (the
+# kernel's scale-and-shift form is an ulp or so from cuDNN's inference
+# BatchNorm).
+# ---------------------------------------------------------------------------
+
+EPILOGUE_REL_TOL = 1e-6
+
+
+def _epilogue_bn(channels: int, seed: int, device):
+    from sed_tpu_torch.models import blocks
+    rng = np.random.RandomState(seed)
+    bn = blocks.BatchNorm(channels).eval()
+    with torch.no_grad():
+        for t, lo, hi in ((bn.running_mean, -1.0, 1.0),
+                          (bn.running_var, 0.01, 4.0),
+                          (bn.weight, 0.2, 2.0), (bn.bias, -1.0, 1.0)):
+            t.copy_(torch.from_numpy(rng.uniform(lo, hi, channels)
+                                     .astype(np.float32)))
+    return bn.requires_grad_(False).to(device)
+
+
+def _epilogue_args(bn):
+    return (bn.running_mean, bn.running_var, bn.weight, bn.bias, bn.eps)
+
+
+def _stack_epilogues(frames: int):
+    """(channels, height, width, pool) of the 8 epilogues of the 4-block
+    stack on ``frames`` log-mel frames of 64 bins."""
+    out, h, w = [], frames, 64
+    for i, c in enumerate((64, 128, 256, 512)):
+        pool = (1, 1) if i == 3 else (2, 2)
+        out += [(c, h, w, (1, 1)), (c, h, w, pool)]
+        h, w = h // pool[0], w // pool[1]
+    return out
+
+
+def _rel_err(got, want) -> float:
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+@pytest.mark.parametrize('frames', [501, 601, 1001])
+@pytest.mark.parametrize('batch', [1, 9, 27, 32])
+def test_cuda_conv_epilogue_matches_plain_at_the_stack_shapes(device, batch,
+                                                              frames):
+    """Every epilogue of the stack at the cells' frame counts and batches;
+    the pool equals avg_pool2d's bit for bit on the kernel's own
+    BatchNorm-ReLU output."""
+    from sed_tpu_torch.ops import conv_epilogue as ce
+    gen = torch.Generator(device=device).manual_seed(batch * frames)
+    for i, (c, h, w, pool) in enumerate(_stack_epilogues(frames)):
+        bn = _epilogue_bn(c, seed=i, device=device)
+        x = torch.randn(batch, c, h, w, device=device, generator=gen) * 2
+        launches = ce.conv_epilogue.launches
+        got = ce.conv_epilogue(x, *_epilogue_args(bn), pool)
+        assert ce.conv_epilogue.launches == launches + 1
+        want = ce.conv_epilogue_plain(x, *_epilogue_args(bn), pool)
+        assert got.shape == want.shape
+        err = _rel_err(got, want)
+        assert err <= EPILOGUE_REL_TOL, (c, h, w, pool, err)
+        if pool == (2, 2):
+            y = ce.conv_epilogue(x, *_epilogue_args(bn), (1, 1))
+            assert torch.equal(got.view(torch.int32),
+                               F.avg_pool2d(y, pool).view(torch.int32))
+
+
+@pytest.mark.parametrize('h,w,offset', [(7, 9, 0), (62, 8, 1), (13, 63, 0),
+                                        (2, 2, 0), (501, 64, 3)])
+def test_cuda_conv_epilogue_scalar_paths(device, h, w, offset):
+    """Widths the float4 paths do not take (odd, or W % 8 != 0 when
+    pooling) and a base address off 16 bytes."""
+    from sed_tpu_torch.ops import conv_epilogue as ce
+    bn = _epilogue_bn(5, seed=h, device=device)
+    n = 3 * 5 * h * w
+    buf = torch.randn(n + offset, device=device,
+                      generator=torch.Generator(device=device).manual_seed(w))
+    x = buf[offset:].view(3, 5, h, w)
+    for pool in ((1, 1), (2, 2)):
+        got = ce.conv_epilogue(x, *_epilogue_args(bn), pool)
+        want = ce.conv_epilogue_plain(x, *_epilogue_args(bn), pool)
+        assert got.shape == want.shape
+        assert _rel_err(got, want) <= EPILOGUE_REL_TOL, (h, w, offset, pool)
+
+
+def test_cuda_conv_epilogue_keeps_nan(device):
+    from sed_tpu_torch.ops import conv_epilogue as ce
+    bn = _epilogue_bn(4, seed=0, device=device)
+    x = torch.randn(2, 4, 10, 16, device=device)
+    x[1, 2, 3, 5] = float('nan')
+    for pool in ((1, 1), (2, 2)):
+        got = ce.conv_epilogue(x, *_epilogue_args(bn), pool)
+        want = ce.conv_epilogue_plain(x, *_epilogue_args(bn), pool)
+        assert torch.equal(got.isnan(), want.isnan())
+        assert got.isnan().sum() == 1
+
+
+def test_cuda_conv_epilogue_refuses_what_it_does_not_take(device):
+    from sed_tpu_torch.ops import conv_epilogue as ce
+    bn = _epilogue_bn(4, seed=0, device=device)
+    x = torch.randn(2, 4, 10, 16, device=device)
+    with pytest.raises(ValueError, match='float32'):
+        ce.conv_epilogue(x.double(), *_epilogue_args(bn), (2, 2))
+    with pytest.raises(ValueError, match='float32'):
+        ce.conv_epilogue(x.bfloat16(), *_epilogue_args(bn), (2, 2))
+    with pytest.raises(ValueError, match='contiguous'):
+        ce.conv_epilogue(x.transpose(2, 3), *_epilogue_args(bn), (2, 2))
+    other = _epilogue_bn(8, seed=0, device=device)
+    with pytest.raises(ValueError, match='4 channels'):
+        ce.conv_epilogue(x, *_epilogue_args(other), (2, 2))
+    with pytest.raises(ValueError, match='no backward'):
+        ce.conv_epilogue(x.requires_grad_(), *_epilogue_args(bn), (2, 2))
+    # the ConvBlock's dispatch hands the wrapper what it is given: no
+    # plain fallback for a tensor the kernel does not take
+    from sed_tpu_torch.models import blocks
+    with torch.no_grad(), pytest.raises(ValueError, match='contiguous'):
+        blocks.epilogue(x.detach().transpose(2, 3), bn.eval(), (2, 2))
+
+
+@pytest.mark.parametrize('dtype', [None, torch.bfloat16],
+                         ids=['fp32', 'bf16'])
+def test_cuda_conv_block_epilogue_matches_plain(device, dtype):
+    """A ConvBlock in eval mode (fp32 and the bf16 compute dtype, whose
+    convolutions return float32) is conv1, the kernel, conv2, the kernel
+    (two launches), each epilogue within the relative tolerance of the
+    plain version on the same convolution output.  In fp32 the block
+    also gives the unfused block's output (the second convolution sees
+    the first epilogue's ulps); in bf16 those ulps can flip the rounding
+    of conv2's bf16 input, so only the per-epilogue check holds there."""
+    from sed_tpu_torch.models import blocks
+    from sed_tpu_torch.ops import conv_epilogue as ce
+    torch.manual_seed(0)
+    block = blocks.ConvBlock(64, 128, dtype=dtype).eval()
+    block.bn1 = _epilogue_bn(128, seed=1, device='cpu')
+    block.bn2 = _epilogue_bn(128, seed=2, device='cpu')
+    block.to(device)
+    x = torch.randn(9, 64, 250, 32, device=device)
+    with torch.inference_mode():
+        launches = ce.conv_epilogue.launches
+        got = block(x)
+        assert ce.conv_epilogue.launches == launches + 2
+        c1 = block.conv1(x)
+        y1 = ce.conv_epilogue(c1, *_epilogue_args(block.bn1), (1, 1))
+        c2 = block.conv2(y1)
+        y2 = ce.conv_epilogue(c2, *_epilogue_args(block.bn2), (2, 2))
+        for c, y, bn, pool in ((c1, y1, block.bn1, (1, 1)),
+                               (c2, y2, block.bn2, (2, 2))):
+            assert c.dtype == torch.float32
+            want = ce.conv_epilogue_plain(c, *_epilogue_args(bn), pool)
+            assert _rel_err(y, want) <= EPILOGUE_REL_TOL
+        unfused = F.avg_pool2d(F.relu(block.bn2(block.conv2(
+            F.relu(block.bn1(c1))))), (2, 2))
+    assert got.shape == (9, 128, 125, 16)
+    assert torch.equal(got, y2)
+    if dtype is None:
+        assert _rel_err(got, unfused) <= 1e-5
+
+
+def test_cuda_gru_forward_through_the_epilogue_matches_cpu(device):
+    """The bench checkpoint's GRU on 8 clips of 5 s: 8 launches a
+    forward, the CPU's framewise and clipwise outputs within 1e-4; a
+    training step of the same model launches none."""
+    from sed_tpu_torch.bench_corpus import make_clips
+    from sed_tpu_torch.ops import conv_epilogue as ce
+    cfg = config.AUDIO_16K
+    wav = torch.from_numpy(make_clips(8, cfg.sample_rate, seconds=5, seed=0))
+    out = {}
+    for dev in ('cpu', device):
+        model = load_npz(CKPT, MODEL, cfg, dev).eval()
+        launches = ce.conv_epilogue.launches
+        with torch.inference_mode():
+            out[dev] = {k: v.cpu() for k, v in model(wav.to(dev)).items()
+                        if k in ('framewise_output', 'clipwise_output')}
+        assert ce.conv_epilogue.launches == launches + (8 if dev != 'cpu'
+                                                        else 0)
+    for k, v in out[device].items():
+        assert (v - out['cpu'][k]).abs().max() <= 1e-4, k
+    model.train()
+    launches = ce.conv_epilogue.launches
+    loss = model(wav.to(device), spec_augment=False)['clipwise_output'].sum()
+    loss.backward()
+    assert ce.conv_epilogue.launches == launches
