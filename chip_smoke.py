@@ -162,8 +162,7 @@ checks it against the same engine on the CPU.  Phases:
     identical to the q6 files; ``predict --resident --device cuda`` on
     the int16 directory: XML files identical; clips/s over 512 clips for
     int16, adpcm4 and q6 files (reads included), v6 rows and
-    ``predict_clips`` on int16, in turns, with one pass's telemetry per
-    wire; the v6 decode kernel (``csrc/v6_decode.cu``, the whole pool
+    ``predict_clips`` on int16, in turns; the v6 decode kernel (``csrc/v6_decode.cu``, the whole pool
     decode) on one 32-clip pool with a padding row: bit-exact to its
     plain version and to ``v6_decode_np``, the padding row silent, and to
     its plain version on a random-word pool; kernel and plain timed (CUDA
@@ -2151,10 +2150,9 @@ def resident_phase(card: str, dev, cfg, clips, gpu, cpu) -> tuple:
 
         pcm = (np.clip(clips, -1, 1) * 32767).astype(np.int16)
         bench = np.concatenate([pcm] * 8)
-        tels = {fmt: {} for fmt in ('int16', 'adpcm4', 'q6', 'v6')}
         modes = {f'{fmt} files': (lambda fmt=fmt: gpu.predict_files_resident(
                      paths[fmt] * 8, audio_io.wire_reader_for(
-                         paths[fmt][0]), telemetry=tels[fmt]))
+                         paths[fmt][0])))
                  for fmt in ('int16', 'adpcm4', 'q6')}
         modes['v6 rows'] = lambda: gpu.predict_rows_resident(payloads * 8)
         modes['predict_clips int16'] = lambda: gpu.predict_clips(bench)
@@ -2165,11 +2163,6 @@ def resident_phase(card: str, dev, cfg, clips, gpu, cpu) -> tuple:
         print(f'[18] clips/s over 512 clips, batch 32, on {card} (4 runs '
               f'each, in turns; files read on the host inside the call): '
               + '; '.join(f'{k} {v}' for k, v in rates.items()))
-        gpu.predict_files_resident_ragged(
-            paths['v6'] * 8, lambda p: audio_io.read_v6(p)[0],
-            telemetry=tels['v6'])
-        for fmt, tel in tels.items():
-            print(f'[18] telemetry of one 512-clip {fmt} pass: {tel}')
 
     # the pool decode of one 32-clip batch: kernel against plain and numpy
     samples = gpu.window_samples

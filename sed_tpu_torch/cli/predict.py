@@ -96,17 +96,15 @@ def _predict_resident(args, engine, out_dir, audio_files):
     reader = audio_io.wire_reader_for(audio_files[0])
     names = [os.path.basename(p) for p in audio_files]
     t0 = time.time()
-    telemetry = {}
     events, xmls = engine.predict_files_resident(
         audio_files, reader, names=names,
         upload_threads=args.upload_threads,
-        max_pass_clips=args.max_pass_clips or None,
-        telemetry=telemetry)
+        max_pass_clips=args.max_pass_clips or None)
     for name, xml in zip(names, xmls):
         _write_xml(out_dir, name, xml)
-    print('Processed {} clips in {:.2f} s ({} events); telemetry: {}'
+    print('Processed {} clips in {:.2f} s ({} events)'
           .format(len(audio_files), time.time() - t0,
-                  sum(len(e) for e in events), telemetry))
+                  sum(len(e) for e in events)))
     return audio_files
 
 

@@ -138,6 +138,8 @@ class SedInferenceEngine:
         split over them; ``batch_size`` must divide evenly over them.
     """
 
+    DISPATCH_AHEAD_BATCHES = 64   # a pass's batches: bounds device buffers
+
     def __init__(self, model: torch.nn.Module, cfg, device='cuda',
                  sample_duration: int = 5, overlap: bool = True,
                  overlap_value: float = 1.0,
@@ -167,7 +169,6 @@ class SedInferenceEngine:
         self.batch_size = batch_size
         self.labels = labels
         self.window_samples = cfg.sample_rate * sample_duration
-        self.dispatch_ahead_batches = 64   # bounds live device buffers
 
         self._params = sed_params.per_class(len(labels))
         self._high_dev = torch.tensor(self._params['sed_high_threshold'],
@@ -203,15 +204,17 @@ class SedInferenceEngine:
         self._sync()
 
     @staticmethod
-    def _share(model, rows: np.ndarray, device: torch.device, fn):
-        """Host rows -> ``device`` (the ``sed::serve.upload`` span), then
-        ``fn(model, rows)`` (the ``sed::serve.forward`` span)."""
-        with span('serve.upload'):
-            rows = torch.from_numpy(np.ascontiguousarray(rows)).to(device)
+    def _share(model, rows, device: torch.device, fn):
+        """Host rows -> ``device`` (the ``sed::serve.upload`` span; a
+        tensor is already there), then ``fn(model, rows)`` (the
+        ``sed::serve.forward`` span)."""
+        if not isinstance(rows, torch.Tensor):
+            with span('serve.upload'):
+                rows = torch.from_numpy(np.ascontiguousarray(rows)).to(device)
         with span('serve.forward'):
             return fn(model, rows)
 
-    def _shares(self, rows: np.ndarray, fn):
+    def _shares(self, rows, fn):
         """``fn(model, rows on its device)`` -> tuple of tensors, for each
         replica's even, contiguous share of ``rows``: every share's work
         is launched before any result is read, then each output is
@@ -240,8 +243,8 @@ class SedInferenceEngine:
                 clipwise)
 
     @torch.inference_mode()
-    def _forward(self, wire: np.ndarray, cover: bool = False):
-        return self._shares(wire, self._run_covered if cover else self._run)
+    def _forward(self, wire: np.ndarray):
+        return self._shares(wire, self._run)
 
     def _check_clip_widths(self, wavs: np.ndarray) -> None:
         """(N, W) clips whose width is ``window_samples`` or a uint8
@@ -370,24 +373,22 @@ class SedInferenceEngine:
                     'offset': fin / fps,
                     'event_label': self.labels[int(act_c[j])]})
 
-    def _pull_tracks(self, framewise: torch.Tensor,
-                     into: Optional[dict] = None):
+    def _pull_tracks(self, framewise: torch.Tensor):
         """Coverage-normalised (N, T, C) framewise output on the device ->
         (active clip and class indices, their packed high and low masks
-        on the host, bytes pulled).
+        on the host).
 
         One pull of the (N, C) track maxima picks the active tracks
         (max > high threshold); their high/low masks (``>`` high, ``>=``
         low, float32 thresholds) are made on the device and pulled in one
-        transfer.  The ``sed::serve.pull`` span (into ``into['pull_s']``).
+        transfer.  The ``sed::serve.pull`` span.
         """
-        with span('serve.pull', into, 'pull_s'):
+        with span('serve.pull'):
             high = np.asarray(self._params['sed_high_threshold'], np.float64)
             track_max = framewise.amax(dim=1).cpu().numpy()     # one pull
             act_n, act_c = np.nonzero(track_max > high[None, :])
-            pulled = track_max.nbytes
             if not act_n.size:
-                return act_n, act_c, None, None, pulled
+                return act_n, act_c, None, None
             idx_n = torch.from_numpy(act_n).to(self.device)
             idx_c = torch.from_numpy(act_c).to(self.device)
             tracks = framewise[idx_n, :, idx_c]                 # (K, T)
@@ -396,30 +397,64 @@ class SedInferenceEngine:
             masks = masks.cpu().numpy()                         # one pull
             k = act_n.size
             return (act_n, act_c, np.packbits(masks[:k], axis=1),
-                    np.packbits(masks[k:], axis=1), pulled + masks.nbytes)
+                    np.packbits(masks[k:], axis=1))
 
-    def _decode_pulled(self, pulled, n: int, names: List[str],
-                       t_frames: int, into: Optional[dict] = None
-                       ) -> List[List[dict]]:
-        """The pulled masks -> per-clip event dicts: the
-        ``sed::serve.decode`` span (into ``into['decode_s']``)."""
-        with span('serve.decode', into, 'decode_s'):
-            act_n, act_c, high_packed, low_packed, _ = pulled
+    def _events_on_device(self, framewise: torch.Tensor,
+                          names: List[str]) -> List[List[dict]]:
+        """Coverage-normalised (N, T, C) framewise output on the device ->
+        per-clip event lists: ``_pull_tracks``, then the host decode (the
+        ``sed::serve.decode`` span)."""
+        n, t_frames, _ = framewise.shape
+        act_n, act_c, high_packed, low_packed = self._pull_tracks(framewise)
+        with span('serve.decode'):
             per_clip: List[List[dict]] = [[] for _ in range(n)]
             if act_n.size:
                 self._decode_tracks_into(per_clip, names, high_packed,
                                          low_packed, act_n, act_c, t_frames)
             return per_clip
 
-    def _events_on_device(self, framewise: torch.Tensor,
-                          names: List[str]) -> List[List[dict]]:
-        """Coverage-normalised (N, T, C) framewise output on the device ->
-        per-clip event lists: ``_pull_tracks``, then the host decode."""
-        n, t_frames, _ = framewise.shape
-        return self._decode_pulled(self._pull_tracks(framewise), n, names,
-                                   t_frames)
+    def _clip_xmls(self, per_clip: List[List[dict]], names: List[str]
+                   ) -> List[str]:
+        """One XML document a clip: the ``sed::serve.xml`` span."""
+        with span('serve.xml'):
+            return [xml_writer.events_to_xml(
+                        sorted(evs, key=lambda e: e['onset']), names[i],
+                        fallback_span=(0, self.sample_duration))
+                    for i, evs in enumerate(per_clip)]
 
     @torch.inference_mode()
+    def _serve_pass(self, rows_of: Callable, lo: int, hi: int,
+                    names: List[str], run=None
+                    ) -> Tuple[List[List[dict]], List[str]]:
+        """Clips [lo, hi), named ``names[lo:hi]`` -> per-clip (events,
+        XML): the one serving loop and tail of every bulk entry point.
+
+        Per batch of ``batch_size``, ``run`` (``_run_covered``) through
+        ``_shares`` on ``rows_of(i0, i1)``: host rows (uploaded and split
+        over the replicas) or rows already on the device.  Every batch is
+        launched before ``_events_on_device`` pulls the pass; then
+        ``_clip_xmls``.
+        """
+        if hi <= lo:               # no clips: no forward, no pull
+            return [], []
+        framewise = torch.cat([
+            self._shares(rows_of(i0, min(hi, i0 + self.batch_size)),
+                         run or self._run_covered)[0]
+            for i0 in range(lo, hi, self.batch_size)])
+        per_clip = self._events_on_device(framewise, names[lo:hi])
+        return per_clip, self._clip_xmls(per_clip, names[lo:hi])
+
+    @staticmethod
+    def _in_passes(n: int, limit: int, serve_pass: Callable) -> tuple:
+        """``serve_pass(lo, hi)`` -> a tuple of per-clip lists, over
+        consecutive passes of at most ``limit`` of ``n`` clips (one when
+        they fit); the passes' lists joined in order."""
+        if n <= limit:
+            return serve_pass(0, n)
+        parts = [serve_pass(lo, min(n, lo + limit))
+                 for lo in range(0, n, limit)]
+        return tuple([x for part in col for x in part] for col in zip(*parts))
+
     def predict_clips(self, wavs: np.ndarray,
                       names: Optional[List[str]] = None
                       ) -> Tuple[List[List[dict]], List[str]]:
@@ -427,39 +462,18 @@ class SedInferenceEngine:
         their uint8 wire of any width in ``wire_widths(window_samples)``
         -> per-clip (events, XML).
 
-        One window per clip.  On the device: wire decode, forward,
-        coverage normalisation, per-track max; then
-        ``_events_on_device``.
+        One window per clip, served by ``_serve_pass`` in passes of at
+        most ``DISPATCH_AHEAD_BATCHES`` batches.  On the device: wire
+        decode, forward, coverage normalisation, per-track max.
         """
         n = wavs.shape[0]
         if names is None:
             names = [f'clip{i}.wav' for i in range(n)]
-        limit = self.dispatch_ahead_batches * self.batch_size
-        if n > limit:
-            per_clip, xmls = [], []
-            for i in range(0, n, limit):
-                ev, xm = self.predict_clips(wavs[i:i + limit],
-                                            names[i:i + limit])
-                per_clip.extend(ev)
-                xmls.extend(xm)
-            return per_clip, xmls
         self._check_clip_widths(wavs)
-
-        framewise = [self._forward(wavs[i0:i0 + self.batch_size],
-                                   cover=True)[0]
-                     for i0 in range(0, n, self.batch_size)]
-        per_clip = self._events_on_device(torch.cat(framewise), names)
-        return per_clip, self._clip_xmls(per_clip, names)
-
-    def _clip_xmls(self, per_clip: List[List[dict]], names: List[str],
-                   into: Optional[dict] = None) -> List[str]:
-        """One XML document a clip: the ``sed::serve.xml`` span (into
-        ``into['decode_s']``)."""
-        with span('serve.xml', into, 'decode_s'):
-            return [xml_writer.events_to_xml(
-                        sorted(evs, key=lambda e: e['onset']), names[i],
-                        fallback_span=(0, self.sample_duration))
-                    for i, evs in enumerate(per_clip)]
+        return self._in_passes(
+            n, self.DISPATCH_AHEAD_BATCHES * self.batch_size,
+            lambda lo, hi: self._serve_pass(lambda i0, i1: wavs[i0:i1],
+                                            lo, hi, names))
 
     @torch.inference_mode()
     def predict_clips_stream(self, chunk_iter: Iterable[np.ndarray],
@@ -531,7 +545,7 @@ class SedInferenceEngine:
                 if not len(chunk):          # adds no clips, runs no forward
                     continue
                 i0 = len(per_clip)
-                fw, _ = self._forward(chunk, cover=True)
+                fw = self._shares(chunk, self._run_covered)[0]
                 chunk_names = (names[i0:i0 + len(chunk)] if names is not None
                                else [f'clip{i}.wav'
                                      for i in range(i0, i0 + len(chunk))])
@@ -572,14 +586,6 @@ class SedInferenceEngine:
         n = wavs.shape[0]
         if clip_samples is None:
             clip_samples = wavs.shape[-1]
-        limit = self.dispatch_ahead_batches * self.batch_size
-        if n > limit:
-            out: List[List[dict]] = []
-            for i in range(0, n, limit):
-                out.extend(self.predict_clips_windowed(
-                    wavs[i:i + limit], names[i:i + limit], duration, step,
-                    clip_samples))
-            return out
         starts = window_starts(duration, self.sample_duration, True, step)
         sr = self.cfg.sample_rate
         offs = [int(s * sr) for s in starts]
@@ -608,9 +614,14 @@ class SedInferenceEngine:
             return acc / coverage.to(acc.device)[None, :, None],
 
         nc = max(1, self.batch_size // w_count)
-        merged = [self._shares(wavs[i0:i0 + nc], run)[0]
-                  for i0 in range(0, n, nc)]
-        return self._events_on_device(torch.cat(merged), names)
+
+        def serve_pass(lo: int, hi: int):
+            merged = [self._shares(wavs[i0:min(hi, i0 + nc)], run)[0]
+                      for i0 in range(lo, hi, nc)]
+            return self._events_on_device(torch.cat(merged), names[lo:hi]),
+
+        return self._in_passes(n, self.DISPATCH_AHEAD_BATCHES
+                               * self.batch_size, serve_pass)[0]
 
     # ------------------------------------------------------------------
     # resident passes: one upload of a whole pass, every batch's decode
@@ -662,69 +673,29 @@ class SedInferenceEngine:
             for f in [pool.submit(read_rows, lo, hi) for lo, hi in shares]:
                 f.result()
 
-    @torch.inference_mode()
-    def _serve_resident(self, rows_of: Callable[[int, int], torch.Tensor],
-                        n: int, names: List[str],
-                        telemetry: Optional[dict], times: dict,
-                        bytes_h2d: int
-                        ) -> Tuple[List[List[dict]], List[str]]:
-        """``rows_of(i0, i1)``: clips [i0, i1) on the device, as wire rows
-        or decoded.  Per batch the forward and coverage normalisation,
-        then one pull of the whole pass (``_pull_tracks``), the host
-        decode and the XML, as ``predict_clips`` does."""
-        times.update(launch_s=0.0, pull_s=0.0, decode_s=0.0)
-        if not n:                  # no clips: no forward, no pull
-            if telemetry is not None:
-                telemetry.update(times, bytes_h2d=int(bytes_h2d),
-                                 bytes_d2h=0, n_batches=0)
-            return [], []
-        framewise = []
-        for i0 in range(0, n, self.batch_size):
-            with span('serve.forward', times, 'launch_s'):
-                framewise.append(self._run_covered(
-                    self.model, rows_of(i0, min(n, i0 + self.batch_size)))[0])
-        framewise = torch.cat(framewise)
-        pulled = self._pull_tracks(framewise, times)
-        per_clip = self._decode_pulled(pulled, n, names, framewise.shape[1],
-                                       times)
-        xmls = self._clip_xmls(per_clip, names, times)
-        if telemetry is not None:
-            telemetry.update(times, bytes_h2d=int(bytes_h2d),
-                             bytes_d2h=int(pulled[-1]),
-                             n_batches=-(-n // self.batch_size))
-        return per_clip, xmls
-
     def predict_clips_resident(self, wavs: np.ndarray,
-                               names: Optional[List[str]] = None,
-                               telemetry: Optional[dict] = None
+                               names: Optional[List[str]] = None
                                ) -> Tuple[List[List[dict]], List[str]]:
         """``predict_clips`` with the whole of ``wavs`` uploaded at once:
         one copy from pinned host memory, then per batch a slice on the
         device -> wire decode -> forward, then one pull of the track
         maxima and masks of the pass.  Results identical to
-        ``predict_clips``.  ``telemetry``, when given a dict, gets the
-        phase wall times (``read_s`` 0, ``upload_s``, ``launch_s``: the
-        batches queued, ``pull_s``: until the masks are on the host,
-        ``decode_s``: events and XML), ``bytes_h2d``, ``bytes_d2h`` and
-        ``n_batches``.  One device.
+        ``predict_clips``.  One device.
         """
         self._single_device('predict_clips_resident')
         n = wavs.shape[0]
         if names is None:
             names = [f'clip{i}.wav' for i in range(n)]
         self._check_clip_widths(wavs)
-        times = dict(read_s=0.0)
-        with span('serve.upload', times, 'upload_s'):
+        with span('serve.upload'):
             host = self._host_buffer(wavs.shape, wavs.dtype)
             host.numpy()[:] = wavs
             dev = self._upload(host)
-        return self._serve_resident(lambda i0, i1: dev[i0:i1], n, names,
-                                    telemetry, times, host.nbytes)
+        return self._serve_pass(lambda i0, i1: dev[i0:i1], 0, n, names)
 
     def predict_files_resident(self, paths: Sequence[str], reader,
                                names: Optional[List[str]] = None,
                                upload_threads: int = 4,
-                               telemetry: Optional[dict] = None,
                                max_pass_clips: Optional[int] = None
                                ) -> Tuple[List[List[dict]], List[str]]:
         """File-list variant of ``predict_clips_resident``:
@@ -737,9 +708,7 @@ class SedInferenceEngine:
 
         ``max_pass_clips`` bounds device memory: the files are served in
         passes of at most that many clips, with results identical to one
-        pass; ``telemetry`` then sums over the passes and gets
-        ``passes``.  ``read_s`` is the reads' wall time, ``upload_s``
-        the copy's.
+        pass.
         """
         self._single_device('predict_files_resident')
         if not len(paths):
@@ -747,27 +716,19 @@ class SedInferenceEngine:
         n = len(paths)
         if names is None:
             names = [os.path.basename(p) for p in paths]
-        if max_pass_clips is not None and n > int(max_pass_clips):
-            step = int(max_pass_clips)
-            if step < 1:
-                raise ValueError(f'max_pass_clips must be >= 1, got {step}')
-            events: List[List[dict]] = []
-            xmls: List[str] = []
-            acc: dict = {}
-            for lo in range(0, n, step):
-                tel = {} if telemetry is not None else None
-                ev, xs = self.predict_files_resident(
-                    paths[lo:lo + step], reader, names[lo:lo + step],
-                    upload_threads, tel)
-                events.extend(ev)
-                xmls.extend(xs)
-                for k, v in (tel or {}).items():
-                    acc[k] = acc.get(k, 0) + v
-            if telemetry is not None:
-                telemetry.update(acc, passes=-(-n // step))
-            return events, xmls
-        times: dict = {}
-        with span('serve.read', times, 'read_s'):
+        limit = n if max_pass_clips is None else int(max_pass_clips)
+        if limit < 1:
+            raise ValueError(f'max_pass_clips must be >= 1, got {limit}')
+        return self._in_passes(n, limit, lambda lo, hi: self._files_pass(
+            paths[lo:hi], reader, names[lo:hi], upload_threads))
+
+    def _files_pass(self, paths: Sequence[str], reader, names: List[str],
+                    upload_threads: int
+                    ) -> Tuple[List[List[dict]], List[str]]:
+        """One pass of ``predict_files_resident``: the reads into the
+        pinned buffer (``sed::serve.read``), one upload, ``_serve_pass``."""
+        n = len(paths)
+        with span('serve.read'):
             first = np.asarray(reader(paths[0]))
             self._check_clip_widths(first[None])
             host = self._host_buffer((n,) + first.shape, first.dtype)
@@ -786,10 +747,9 @@ class SedInferenceEngine:
 
             self._read_shares(self._byte_balanced(np.arange(n + 1),
                                                   upload_threads), read_rows)
-        with span('serve.upload', times, 'upload_s'):
+        with span('serve.upload'):
             dev = self._upload(host)
-        return self._serve_resident(lambda i0, i1: dev[i0:i1], n, names,
-                                    telemetry, times, host.nbytes)
+        return self._serve_pass(lambda i0, i1: dev[i0:i1], 0, n, names)
 
     def _ragged_plan(self, payload_bytes: Sequence[int], n_threads: int):
         """Plan a ragged pass: each clip's word offset in the pool, the
@@ -806,7 +766,6 @@ class SedInferenceEngine:
             self, paths: Sequence, reader,
             names: Optional[List[str]] = None,
             upload_threads: int = 4,
-            telemetry: Optional[dict] = None,
             payload_bytes: Optional[Sequence[int]] = None
             ) -> Tuple[List[List[dict]], List[str]]:
         """Ragged-wire variant of ``predict_files_resident``:
@@ -831,8 +790,7 @@ class SedInferenceEngine:
             payload_bytes = [audio_io.v6_payload_bytes(p) for p in paths]
         offsets, chunks, bounds_b = self._ragged_plan(payload_bytes,
                                                       upload_threads)
-        times: dict = {}
-        with span('serve.read', times, 'read_s'):
+        with span('serve.read'):
             host = self._host_buffer(
                 (int(bounds_b[-1]) + 4 * self._RAGGED_TAIL_WORDS,), np.uint8)
             buf = host.numpy()
@@ -849,14 +807,15 @@ class SedInferenceEngine:
                     buf[bounds_b[j]:bounds_b[j + 1]] = row
 
             self._read_shares(chunks, read_rows)
-        with span('serve.upload', times, 'upload_s'):
+        with span('serve.upload'):
             pool = self._upload(host.view(torch.int32))
         offs = torch.from_numpy(offsets).to(self.device)
-        samples = self.window_samples
-        return self._serve_resident(
-            lambda i0, i1: wire_ops.dequant_v6_pool(pool, offs[i0:i1],
-                                                    samples),
-            n, names, telemetry, times, host.nbytes + offsets.nbytes)
+
+        def run(model, batch_offs):        # the batch decoded in the forward
+            return self._run_covered(model, wire_ops.dequant_v6_pool(
+                pool, batch_offs, self.window_samples))
+
+        return self._serve_pass(lambda i0, i1: offs[i0:i1], 0, n, names, run)
 
     def predict_rows_resident(self, rows_list: Sequence[np.ndarray],
                               names: Optional[List[str]] = None

@@ -7,7 +7,7 @@ The reference has no tracing at all — only wall-clock prints
   block (a train step, the serving loop) writes a Chrome trace of its
   host and, where there is a card, its device activity into ``logdir``
   (loadable in Perfetto or ``chrome://tracing``);
-* ``span(name, into, key)``: a ``sed::<name>`` span around one host stage
+* ``span(name)``: a ``sed::<name>`` span around one host stage
   of the program, recorded while a profiler runs, so that each idle gap
   of the device trace can be put down to the stage the host was in.
 
@@ -24,7 +24,6 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from typing import Optional
 
 import torch
 
@@ -49,28 +48,20 @@ def trace(logdir: str):
 
 class span:
     """``with span('serve.decode'):`` records a host operator event
-    ``sed::serve.decode`` around the block while a profiler runs.  When
-    ``into`` is a dict, the block's host-clock seconds are also added to
-    ``into[key]`` (started at 0), profiler or not."""
+    ``sed::serve.decode`` around the block while a profiler runs."""
 
-    __slots__ = ('_name', '_into', '_key', '_op', '_t0')
+    __slots__ = ('_name', '_op')
 
-    def __init__(self, name: str, into: Optional[dict] = None,
-                 key: Optional[str] = None):
-        self._name, self._into, self._key = name, into, key
+    def __init__(self, name: str):
+        self._name = name
 
     def __enter__(self) -> 'span':
         self._op = _HostOp('sed::' + self._name) if _profiler_on() else None
         if self._op is not None:
             self._op.__enter__()
-        if self._into is not None:
-            self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc) -> bool:
-        if self._into is not None:
-            self._into[self._key] = (self._into.get(self._key, 0.0)
-                                     + time.perf_counter() - self._t0)
         if self._op is not None:
             self._op.__exit__(*exc)
         return False

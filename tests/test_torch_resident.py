@@ -20,6 +20,7 @@ import types
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from sed_tpu.cli import predict as jax_predict_cli
 from sed_tpu.config import AUDIO_16K
@@ -105,6 +106,29 @@ def _paths(d) -> list:
 NAMES = [f'c{i}.wav' for i in range(N)]
 
 
+def _traced(fn):
+    """(fn's result, the ``sed::serve.*`` stages it spanned, in order)
+    under a CPU profile."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    return out, [e.name[len('sed::serve.'):] for e in sorted(
+        (e for e in prof.events() if e.name.startswith('sed::serve.')),
+        key=lambda e: e.time_range.start)]
+
+
+def _count_uploads(monkeypatch, port) -> list:
+    """The bytes of each pinned pass buffer ``port`` uploads from now
+    on, in order."""
+    sizes = []
+    upload = port._upload
+
+    def counted(host):
+        sizes.append(host.nbytes)
+        return upload(host)
+    monkeypatch.setattr(port, '_upload', counted)
+    return sizes
+
+
 @pytest.fixture(scope='module')
 def q6_result(engines, clips):
     return engines[1].predict_clips(FORMATS['q6'][1](clips), NAMES)
@@ -112,7 +136,7 @@ def q6_result(engines, clips):
 
 @pytest.mark.parametrize('fmt', sorted(FORMATS))
 def test_resident_passes_identical_to_predict_clips_and_sed_tpu(
-        engines, clips, corpus, fmt):
+        engines, clips, corpus, fmt, monkeypatch):
     """Files of each format through ``wire_reader_for``: the port's
     ``predict_files_resident`` (three reader threads) and
     ``predict_clips_resident`` on the same wire rows equal its
@@ -124,17 +148,15 @@ def test_resident_passes_identical_to_predict_clips_and_sed_tpu(
     rows = np.stack([reader(p) for p in paths])
     if fmt != 'adpcm4':            # the wav carries no pad byte
         assert np.array_equal(rows, FORMATS[fmt][1](clips))
-    tel = {}
-    got = port.predict_files_resident(paths, reader, upload_threads=3,
-                                      telemetry=tel)
+    uploaded = _count_uploads(monkeypatch, port)
+    got, stages = _traced(lambda: port.predict_files_resident(
+        paths, reader, upload_threads=3))
     assert sum(map(len, got[0])) > 0
     assert got == port.predict_clips(rows, names)
     assert got == port.predict_clips_resident(rows, names)
     assert got == ref.predict_files_resident(
         paths, jax_audio_io.wire_reader_for(paths[0]), upload_threads=3)
-    assert tel['bytes_h2d'] == rows.nbytes and tel['n_batches'] == 1
-    assert set(tel) == {'read_s', 'upload_s', 'launch_s', 'pull_s',
-                        'decode_s', 'bytes_h2d', 'bytes_d2h', 'n_batches'}
+    assert uploaded[0] == rows.nbytes and stages.count('forward') == 1
 
 
 @pytest.mark.parametrize('max_pass', [3, 5])
@@ -143,30 +165,32 @@ def test_max_pass_clips_gives_one_pass_results(engines, corpus, max_pass):
     paths = _paths(corpus['adpcm4'])
     reader = audio_io.wire_reader_for(paths[0])
     one = port.predict_files_resident(paths, reader)
-    tel = {}
-    assert port.predict_files_resident(paths, reader, telemetry=tel,
-                                       max_pass_clips=max_pass) == one
-    assert tel['passes'] == -(-N // max_pass)
-    assert tel['n_batches'] == tel['passes']
+    got, stages = _traced(lambda: port.predict_files_resident(
+        paths, reader, max_pass_clips=max_pass))
+    assert got == one
+    # one upload a pass, and one batch a pass
+    assert stages.count('upload') == -(-N // max_pass)
+    assert stages.count('forward') == stages.count('upload')
     with pytest.raises(ValueError, match='max_pass_clips'):
         port.predict_files_resident(paths, reader, max_pass_clips=0)
 
 
 @pytest.mark.parametrize('entry', ['files', 'rows'])
 def test_ragged_v6_gives_the_q6_results(engines, clips, corpus, q6_result,
-                                        entry):
+                                        entry, monkeypatch):
     """v6 files (``read_v6``) and in-memory payloads: the results of the
     q6 wire in the port and in sed_tpu's ragged pass."""
     ref, port = engines
     paths = _paths(corpus['v6'])
     if entry == 'files':
-        tel = {}
+        uploaded = _count_uploads(monkeypatch, port)
         got = port.predict_files_resident_ragged(
             paths, lambda p: audio_io.read_v6(p)[0], names=NAMES,
-            upload_threads=3, telemetry=tel)
-        assert tel['bytes_h2d'] == sum(
-            audio_io.v6_payload_bytes(p) for p in paths) + \
-            4 * port._RAGGED_TAIL_WORDS + 4 * N
+            upload_threads=3)
+        # the pool: exactly the true bytes and the zero tail
+        assert uploaded == [sum(audio_io.v6_payload_bytes(p)
+                                for p in paths)
+                            + 4 * port._RAGGED_TAIL_WORDS]
         want = ref.predict_files_resident_ragged(
             paths, lambda p: jax_audio_io.read_v6(p)[0], names=NAMES)
     else:
@@ -201,9 +225,9 @@ def test_zero_clips_resident_give_no_results(engines):
     ``predict_clips_resident``, no batch run."""
     ref, port = engines
     empty = np.zeros((0, 80000), np.int16)
-    tel = {}
-    assert port.predict_clips_resident(empty, telemetry=tel) == ([], [])
-    assert tel['n_batches'] == 0 and tel['bytes_d2h'] == 0
+    got, stages = _traced(lambda: port.predict_clips_resident(empty))
+    assert got == ([], [])
+    assert 'forward' not in stages and 'pull' not in stages
     assert ref.predict_clips_resident(empty) == ([], [])
 
 

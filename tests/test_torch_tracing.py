@@ -23,6 +23,7 @@ from bench_h100 import harness, spans
 from sed_tpu_torch.bench_corpus import make_clips
 from sed_tpu_torch.compat.from_flax import load_npz
 from sed_tpu_torch.config import AUDIO_16K
+from sed_tpu_torch.data import audio_io
 from sed_tpu_torch.serve import engine as engine_mod
 from sed_tpu_torch.serve.streaming import StreamingSed
 from sed_tpu_torch.train.prefetch import device_prefetch
@@ -89,57 +90,84 @@ def test_span_is_a_host_op_that_nests(tmp_path):
     assert cats == {'sed::outer': 'cpu_op', 'sed::inner': 'cpu_op'}
 
 
-@pytest.mark.parametrize('into', [False, True])
-def test_span_without_a_profiler_records_nothing(monkeypatch, into):
+def test_span_without_a_profiler_records_nothing(monkeypatch):
     made = []
     monkeypatch.setattr(profiling, '_HostOp',
                         lambda name: made.append(name))
-    times = {'pull_s': 0.5} if into else None
-    t0 = time.perf_counter()
     for _ in range(2):
-        with profiling.span('serve.pull', times, 'pull_s'):
+        with profiling.span('serve.pull'):
             time.sleep(0.01)
-    took = time.perf_counter() - t0
     assert made == []
-    if into:
-        # each block's seconds added to what the key held
-        assert 0.5 + 0.02 <= times['pull_s'] <= 0.5 + took
 
 
-def test_predict_clips_spans_each_stage_in_order(port, pcm):
-    (events, xmls), got, _ = _profiled(lambda: port.predict_clips(pcm))
-    assert len(xmls) == len(pcm)
-    assert [e.name[len('sed::serve.'):] for e in got] == \
-        ['upload', 'forward'] * 2 + ['pull', 'decode', 'xml']
+def _wav_files(d, pcm):
+    """(paths, reader) of the clips written as int16 wavs in ``d``."""
+    paths = [str(d / f'c{i}.wav') for i in range(len(pcm))]
+    for p, x in zip(paths, pcm):
+        audio_io.save_wav(p, x / 32767.0, SR)
+    return paths, audio_io.wire_reader_for(paths[0])
+
+
+def _v6_files(d, pcm):
+    """(paths, reader) of the clips written as .v6 files in ``d``."""
+    paths = [str(d / f'c{i}.v6') for i in range(len(pcm))]
+    for p, x in zip(paths, pcm):
+        audio_io.save_v6(p, x, SR)
+    return paths, lambda path: audio_io.read_v6(path)[0]
+
+
+FORWARDS = ['upload', 'forward'] * 2
+TAIL = ['pull', 'decode', 'xml']
+# entry point -> (its per-clip events from the port, the clips and a
+# directory; the serve.* stages it spans, in order), for 2 batches of
+# 2 clips
+ENTRIES = {
+    'predict_clips': (
+        lambda port, pcm, d: port.predict_clips(pcm)[0], FORWARDS + TAIL),
+    'predict_clips_stream': (
+        lambda port, pcm, d: port.predict_clips_stream(
+            iter([pcm[:BATCH], pcm[BATCH:]]))[0],
+        ['upload', 'forward', 'pull', 'decode'] * 2 + ['xml']),
+    # 6 s clips in two 5 s windows a second apart: one clip a chunk
+    'predict_clips_windowed': (
+        lambda port, pcm, d: port.predict_clips_windowed(
+            np.concatenate([pcm[:2], pcm[2:, :SR]], axis=1),
+            ['a.wav', 'b.wav'], 6.0, 1.0),
+        FORWARDS + ['pull', 'decode']),
+    'predict_clips_resident': (
+        lambda port, pcm, d: port.predict_clips_resident(pcm)[0],
+        ['upload', 'forward', 'forward'] + TAIL),
+    # passes of at most 3 clips: 2 batches, then 1
+    'predict_files_resident': (
+        lambda port, pcm, d: port.predict_files_resident(
+            *_wav_files(d, pcm), max_pass_clips=3)[0],
+        ['read', 'upload', 'forward', 'forward'] + TAIL
+        + ['read', 'upload', 'forward'] + TAIL),
+    'predict_files_resident_ragged': (
+        lambda port, pcm, d: port.predict_files_resident_ragged(
+            *_v6_files(d, pcm))[0],
+        ['read', 'upload', 'forward', 'forward'] + TAIL),
+    'predict_rows_resident': (
+        lambda port, pcm, d: port.predict_rows_resident(
+            [audio_io.v6_encode_clip(x) for x in pcm])[0],
+        ['read', 'upload', 'forward', 'forward'] + TAIL),
+}
+
+
+@pytest.mark.parametrize('entry', list(ENTRIES))
+def test_every_bulk_entry_spans_its_stages_in_order(port, pcm, tmp_path,
+                                                    entry):
+    """The ``sed::serve.*`` spans of each bulk entry point, whose names,
+    boundaries and order the benchmark's span readers depend on."""
+    call, stages = ENTRIES[entry]
+    per_clip, got, _ = _profiled(lambda: call(port, pcm, tmp_path))
+    assert len(per_clip) == (2 if entry == 'predict_clips_windowed'
+                             else len(pcm))
+    assert [e.name[len('sed::serve.'):] for e in got] == stages
     # one after another on the calling thread, none nested in another
     assert len({e.thread for e in got}) == 1
     assert all(a.time_range.end <= b.time_range.start
                for a, b in zip(got, got[1:]))
-
-
-@pytest.fixture(scope='module')
-def resident_traced(port, pcm):
-    tel = {}
-    (_, _), got, _ = _profiled(
-        lambda: port.predict_clips_resident(pcm, telemetry=tel))
-    return tel, got
-
-
-@pytest.mark.parametrize('key,stages', [
-    ('upload_s', ('upload',)), ('launch_s', ('forward',)),
-    ('pull_s', ('pull',)), ('decode_s', ('decode', 'xml'))])
-def test_resident_telemetry_is_read_at_the_span_boundaries(
-        resident_traced, key, stages):
-    tel, got = resident_traced
-    assert set(tel) == {'read_s', 'upload_s', 'launch_s', 'pull_s',
-                        'decode_s', 'bytes_h2d', 'bytes_d2h', 'n_batches'}
-    assert [e.name for e in got] == [
-        f'sed::serve.{s}' for s in
-        ['upload'] + ['forward'] * 2 + ['pull', 'decode', 'xml']]
-    mine = [e.time_range.elapsed_us() / 1e6 for e in got
-            if e.name[len('sed::serve.'):] in stages]
-    # the host clock read just inside each of the key's spans
-    assert 0 < tel[key] and abs(tel[key] - sum(mine)) <= 1e-3 * len(mine)
 
 
 def _closed_form(seconds: int, t_win: int, hop: int, window_s: int):

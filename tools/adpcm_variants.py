@@ -1,6 +1,6 @@
 """Time variants of the ADPCM decode kernel on the card (a tuning tool).
 
-    python3 -m sed_tpu_torch.ops.adpcm_variants [--runs 8,4] [--variants full,null]
+    python3 tools/adpcm_variants.py [--runs 8,4] [--variants full,null]
 
 Each variant is ``csrc/adpcm_decode.cu`` with a few lines replaced, built by
 ``nvcc`` with the package's flags into a temporary directory (all in
@@ -90,8 +90,7 @@ def main(argv=None) -> None:
     import numpy as np
     import torch
 
-    repo = os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     sys.path.insert(0, repo)
     import chip_smoke
     from sed_tpu_torch import _build
