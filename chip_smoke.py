@@ -10,8 +10,8 @@ checks it against the same engine on the CPU.  Phases:
 
 1. card, power limit, torch / CUDA versions, TF32 flags (both turned off);
 2. build of the CUDA kernels from ``sed_tpu_torch/csrc`` (log-mel, the v6
-   pool decode, the ADPCM decode and the conv epilogue; one nvcc a
-   source, started together,
+   pool decode, the ADPCM decode, the conv epilogue and the 3x3
+   convolution; one nvcc a source, started together,
    sm_90a), the time, and ptxas's registers, shared memory and spills (no
    spills);
 3. kernel against its plain PyTorch version at 8, 16 and 32 kHz, with a
@@ -32,7 +32,11 @@ checks it against the same engine on the CPU.  Phases:
    epilogue kernel (``csrc/conv_epilogue.cu``) at each of the 8 epilogues
    of a 32 x 5 s forward against its plain version (relative error, the
    pool bitwise on its own BatchNorm-ReLU output) and its bytes' bound,
-   both timed (``epilogue_checks``);
+   both timed (``epilogue_checks``); the 3x3 convolution kernel
+   (``csrc/conv3x3.cu``) at the 8 convolutions of a 32 x 5 s forward, a
+   layer-4 one at batch 1 and the 8 of 27 windows of 6 s, against float64
+   (within 4x of cuDNN fp32's error, 50x below one TF32 pass's) and timed
+   against its plain version, cuDNN and its bound (``conv_checks``);
 7. Cnn_9layers_Transformer_FrameAtt at full width on
    ``compat.bench_weights.transformer_variables``: ``predict_clips`` on
    the 64 int16 clips, GPU against CPU (events and XML identical,
@@ -203,8 +207,10 @@ together), ``--resident-only`` phases 1, 2 and 18, ``--learning-only``
 phases 1, 2 and 19, ``--adpcm-only``
 phases 1, 2 and phase 10's ADPCM kernel checks and times
 (``adpcm_kernel_checks``), ``--epilogue-only`` phases 1, 2 and phase 6's
-conv epilogue checks and times (``epilogue_checks``), and none prints a
-result line (for work on that phase).
+conv epilogue checks and times (``epilogue_checks``), ``--conv-only``
+phases 1, 2 and phase 6's 3x3 convolution checks and times
+(``conv_checks``), and none prints a result line (for work on that
+phase).
 
 Phases 4, 7, 8, 9, 10, 11, 12, 13, 14, 16, 17, 18 and 19 drive the main
 paths: each sets the kernel's launch count to 0 just before and reads it
@@ -215,8 +221,10 @@ gamma path the same way and fails if log-mel was launched there: that
 path has no kernel, its model takes packed features.  Every one of
 these runs, phase 15's too, also sets the conv epilogue kernel's count
 to 0 and fails unless it reads 2 launches for each ConvBlock of each
-eval forward and none in a training step (``check_epilogues``); the
-result line's ``launches`` of that kernel add up these counts.  The
+eval forward and none in a training step (``check_epilogues``), and the
+same for the 3x3 convolution kernel: one launch for each float32 3x3
+convolution of each eval forward (none in bf16 or training); the
+result line's ``launches`` of those kernels add up these counts.  The
 script imports nothing of JAX and nothing of the JAX package
 ``sed_tpu``, and checks so at the end.
 
@@ -240,7 +248,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 KERNELS = ('logmel', 'v6_decode', 'adpcm_decode',   # csrc/<name>.cu
-           'conv_epilogue')
+           'conv_epilogue', 'conv3x3')
 TOL = dict(rtol=1e-4, atol=1e-3)        # dB; tests/test_ops.py's tolerance
 # Hopper's INT32 pipe: 64 operations a clock on each of an H100 SXM's 132
 # SMs at its 1.98 GHz boost clock (the table's 67 T/s is float32 FMA)
@@ -493,16 +501,32 @@ def graph_launches(fn) -> int:
     return n.value
 
 
-# the conv epilogue launches that the main-path phases counted and checked
+# the conv epilogue and 3x3 convolution launches that the main-path phases
+# counted and checked
 epilogue_launches = []
+conv3x3_launches = []
+
+
+def reset_conv_counts() -> None:
+    """Set the conv epilogue's and the 3x3 convolution's launch counts to
+    0 before a run that ``check_epilogues`` checks."""
+    from sed_tpu_torch.ops.conv3x3 import conv3x3
+    from sed_tpu_torch.ops.conv_epilogue import conv_epilogue
+    conv_epilogue.launches = 0
+    conv3x3.launches = 0
 
 
 def check_epilogues(tag: str, model, forwards: int) -> None:
-    """Fails unless ``conv_epilogue.launches``, set to 0 before the run,
-    is 2 for each ConvBlock of ``model`` in each of its ``forwards`` eval
-    forwards: every BatchNorm + ReLU (+ pool) of the stack ran as the
-    kernel.  A training run gives ``forwards`` 0: no launch."""
-    from sed_tpu_torch.models.blocks import ConvBlock
+    """Fails unless ``conv_epilogue.launches``, set to 0 before the run
+    (``reset_conv_counts``), is 2 for each ConvBlock of ``model`` in each
+    of its ``forwards`` eval forwards: every BatchNorm + ReLU (+ pool) of
+    the stack ran as the kernel; and unless ``conv3x3.launches`` is 1 for
+    each float32 3x3 ``blocks.Conv2d`` (stride 1, padding 1, no bias, no
+    compute dtype) in each of them: every such convolution ran in
+    ``csrc/conv3x3.cu``.  A training run gives ``forwards`` 0: no launch."""
+    import torch
+    from sed_tpu_torch.models.blocks import Conv2d, ConvBlock
+    from sed_tpu_torch.ops.conv3x3 import conv3x3
     from sed_tpu_torch.ops.conv_epilogue import conv_epilogue
     blocks = sum(isinstance(m, ConvBlock) for m in model.modules())
     want = 2 * blocks * forwards
@@ -510,6 +534,15 @@ def check_epilogues(tag: str, model, forwards: int) -> None:
         f'{tag}: {conv_epilogue.launches} conv epilogue launches, not '
         f'{want} ({forwards} eval forwards of {blocks} ConvBlocks)')
     epilogue_launches.append(want)
+    convs = sum(isinstance(m, Conv2d) and m._kernel_geometry
+                and m.compute_dtype is None
+                and m.weight.dtype == torch.float32
+                for m in model.modules())
+    want = convs * forwards
+    assert conv3x3.launches == want, (
+        f'{tag}: {conv3x3.launches} 3x3 convolution launches, not {want} '
+        f'({forwards} eval forwards of {convs} float32 3x3 convolutions)')
+    conv3x3_launches.append(want)
 
 
 def decode_profile(dequant_wire, batch, tag: str) -> int:
@@ -622,6 +655,115 @@ def epilogue_checks(card: str, dev, batch: int = 32,
           f'bound {total["bound_ms"]:.5f} ms ({share:.4f} of it); max '
           f'relative error {max_err!r}')
     return {**total, 'bound_by': 'bytes', 'max_rel_err': max_err}
+
+
+# 3xTF32 on the H100's 495 TFLOP/s of dense TF32: three passes a product
+CONV_PEAK_FLOPS = 495e12 / 3
+# the 3x3 kernel's error against float64 may be this many times cuDNN
+# fp32's on the same input (tests/test_torch_cuda.py's CONV_FP32_FACTOR),
+# and one TF32 pass's must be CONV_TF32_MARGIN times the kernel's or more
+CONV_FP32_FACTOR, CONV_TF32_MARGIN = 4.0, 50.0
+
+
+def stack_convs(frames: int, width: int = 64) -> list:
+    """(Cin, Cout, height, width) of the 8 convolutions of the 4-block
+    stack on ``frames`` log-mel frames of ``width`` bins."""
+    out, h, w, cin = [], frames, width, 1
+    for i, c in enumerate((64, 128, 256, 512)):
+        out += [(cin, c, h, w), (c, c, h, w)]
+        cin = c
+        if i < 3:
+            h, w = h // 2, w // 2
+    return out
+
+
+def conv_bound_ms(batch: int, cin: int, cout: int, h: int, w: int) -> tuple:
+    """The least time an H100 SXM could take for one fp32-accurate 3x3
+    convolution: the larger of its operations (2 Cin Cout 9 H W an image)
+    at 165 TFLOP/s (``CONV_PEAK_FLOPS``) and its bytes (input, weights and
+    output once) over 3.35 TB/s; and which of the two bounds it."""
+    ops_ms = 2 * cin * cout * 9 * h * w * batch / CONV_PEAK_FLOPS * 1e3
+    bytes_ms = 4 * (batch * (cin + cout) * h * w + 9 * cin * cout) \
+        / 3.35e12 * 1e3
+    return max(ops_ms, bytes_ms), ('operations' if ops_ms >= bytes_ms
+                                   else 'bytes')
+
+
+def conv_checks(card: str, dev) -> dict:
+    """The 3x3 convolution kernel (``csrc/conv3x3.cu``) at the 8
+    convolutions of a 32 x 5 s forward, one layer-4 convolution at batch 1
+    (split K) and the 8 of a forward of 27 windows of 6 s, on post-ReLU
+    inputs and weights of the checkpoint's scale: its error against
+    float64 (on the first two images) within CONV_FP32_FACTOR of cuDNN
+    fp32's and CONV_TF32_MARGIN below one TF32 pass's; then timed by
+    ``queued_ms`` (inputs read from device memory, not L2) against the
+    plain version (three cuDNN passes), the library (``F.conv2d`` under
+    the measured choice, TF32 off; the port never calls it for these) and
+    the bound.  Returns the JSON entry's numbers: the sums over the 8
+    convolutions of the 32 x 5 s forward."""
+    import torch
+    import torch.nn.functional as F
+    from sed_tpu_torch.models.blocks import measured_choice
+    from sed_tpu_torch.ops import conv3x3 as cv
+    from sed_tpu_torch.ops.logmel_kernel import tf32_round
+    gen = torch.Generator(device=dev).manual_seed(19)
+    cases = [('5 s x 32', 32, c) for c in stack_convs(501)] \
+        + [('5 s x 1', 1, stack_convs(501)[-1])] \
+        + [('6 s x 27', 27, c) for c in stack_convs(601)]
+    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    worst = 0.0
+
+    def library(x, w):
+        with measured_choice():
+            return F.conv2d(x, w, padding=1)
+
+    def plain(x, w):
+        with measured_choice():
+            return cv.conv3x3_plain(x, w)
+
+    for tag, batch, (cin, cout, h, w) in cases:
+        x = torch.randn(batch, cin, h, w, device=dev, generator=gen).relu()
+        wt = torch.randn(cout, cin, 3, 3, device=dev, generator=gen) \
+            / (3 * cin ** 0.5)
+        planes = cv.weight_planes(wt)
+        ref = F.conv2d(x[:2].double(), wt.double(), padding=1)
+        errs = [((y[:2].double() - ref).abs().max() / ref.abs().max()).item()
+                for y in (cv.conv3x3(x, wt, planes), library(x, wt),
+                          F.conv2d(tf32_round(x), tf32_round(wt), padding=1))]
+        worst = max(worst, errs[0] / errs[1])
+        assert errs[0] <= CONV_FP32_FACTOR * errs[1] and \
+            errs[0] * CONV_TF32_MARGIN <= errs[2], (tag, cin, cout, errs)
+        copies = itertools.cycle([x] + [x.clone() for _ in range(
+            -(-150_000_000 // (4 * x.numel())) - 1)])
+        times = {'kernel': [], 'plain': [], 'library': []}
+        fns = {'kernel': lambda x: cv.conv3x3(x, wt, planes),
+               'plain': lambda x: plain(x, wt),
+               'library': lambda x: library(x, wt)}
+        for name in ('kernel', 'plain', 'library') * 2:
+            times[name].append(queued_ms(lambda: fns[name](next(copies)),
+                                         reps=10))
+        ms = {k: min(v) for k, v in times.items()}
+        bound, by = conv_bound_ms(batch, cin, cout, h, w)
+        if tag == '5 s x 32':
+            total['ms'] += ms['kernel']
+            total['plain_ms'] += ms['plain']
+            total['library_ms'] += ms['library']
+            total['bound_ms'] += bound
+        print(f'[6] conv3x3 {tag}: {cin} -> {cout} at {h} x {w} on {card}: '
+              f'kernel {times["kernel"]} ms ({bound / ms["kernel"]:.4f} of '
+              f'the bound, {bound:.5f} ms by {by}), plain {times["plain"]} '
+              f'ms, library {times["library"]} ms (10 calls queued, each '
+              f'side twice, in turns); error against float64: kernel '
+              f'{errs[0]:.3e}, cuDNN fp32 {errs[1]:.3e}, one TF32 pass '
+              f'{errs[2]:.3e}')
+        del x, copies, ref
+    share = total['bound_ms'] / total['ms']
+    print(f'[6] conv3x3, the 8 of a 32 x 501-frame forward: kernel '
+          f'{total["ms"]:.5f} ms ({total["ms"] / 32:.5f} a clip), plain '
+          f'{total["plain_ms"]:.5f} ms, library {total["library_ms"]:.5f} '
+          f'ms, bound {total["bound_ms"]:.5f} ms ({share:.4f} of it); the '
+          f'kernel\'s error at most {worst:.3f} x cuDNN fp32\'s')
+    return {**total, 'bound_by': 'operations', 'max_err_vs_cudnn': worst}
 
 
 def adpcm_kernel_checks(card: str, dev, signals, wires) -> tuple:
@@ -906,7 +1048,6 @@ def train_phase(card: str, dev, cfg, pcm):
     from sed_tpu_torch.cli import common
     from sed_tpu_torch.compat.from_flax import load_checkpoint
     from sed_tpu_torch.dsp.frontend import logmel_plain
-    from sed_tpu_torch.ops.conv_epilogue import conv_epilogue
     from sed_tpu_torch.ops.logmel_kernel import fused_logmel
     from sed_tpu_torch.serve.engine import SedInferenceEngine
     from sed_tpu_torch.train.checkpoint import save_best_checkpoint
@@ -944,7 +1085,7 @@ def train_phase(card: str, dev, cfg, pcm):
                               size=2, device=dev)
     torch.cuda.reset_peak_memory_stats(dev)
     fused_logmel.launches = 0
-    conv_epilogue.launches = 0
+    reset_conv_counts()
     losses = []
     for i in range(25):
         if i == 5:
@@ -1119,7 +1260,6 @@ def families_phase(card: str, dev, cfg, pcm) -> int:
     from sed_tpu_torch.cli import common
     from sed_tpu_torch.compat.bench_weights import seeded_model
     from sed_tpu_torch.compat.from_flax import load_checkpoint
-    from sed_tpu_torch.ops.conv_epilogue import conv_epilogue
     from sed_tpu_torch.ops.logmel_kernel import fused_logmel
     from sed_tpu_torch.serve.engine import SedInferenceEngine, window_starts
     from sed_tpu_torch.serve.streaming import StreamingSed
@@ -1143,7 +1283,7 @@ def families_phase(card: str, dev, cfg, pcm) -> int:
         t0 = time.perf_counter()
         gpu, cpu = engines(name)
         fused_logmel.launches = 0
-        conv_epilogue.launches = 0
+        reset_conv_counts()
         ev_gpu, xml_gpu = gpu.predict_clips(pcm)
         launched = fused_logmel.launches
         assert launched > 0, f'{name} did not launch the log-mel kernel'
@@ -1198,7 +1338,7 @@ def families_phase(card: str, dev, cfg, pcm) -> int:
     wgpu = SedInferenceEngine(gpu.model, cfg, dev, **kw)
     wcpu = SedInferenceEngine(cpu.model, cfg, 'cpu', **kw)
     fused_logmel.launches = 0
-    conv_epilogue.launches = 0
+    reset_conv_counts()
     ev_gpu = wgpu.predict_clips_windowed(clips10, names10, 10.0, step)
     launched = fused_logmel.launches
     assert launched > 0, 'the Conformer windowed path launched no kernel'
@@ -1219,7 +1359,7 @@ def families_phase(card: str, dev, cfg, pcm) -> int:
     rng = np.random.RandomState(12)
     sess = StreamingSed(gpu, 'stream')
     fused_logmel.launches = 0
-    conv_epilogue.launches = 0
+    reset_conv_counts()
     pos, feeds, got = 0, 0, []
     while pos < len(stream):
         size = int(rng.uniform(0.05, 3.0) * cfg.sample_rate)
@@ -1264,7 +1404,7 @@ def families_phase(card: str, dev, cfg, pcm) -> int:
                                   size=2, device=dev)
         torch.cuda.reset_peak_memory_stats(dev)
         fused_logmel.launches = 0
-        conv_epilogue.launches = 0
+        reset_conv_counts()
         losses = []
         for i in range(12):
             if i == 2:
@@ -1384,7 +1524,6 @@ def gamma_phase(card: str, dev) -> None:
     from sed_tpu_torch.dsp.cqt import CQTFrontend
     from sed_tpu_torch.dsp.frontend import stft
     from sed_tpu_torch.eval.evaluator import Evaluator
-    from sed_tpu_torch.ops.conv_epilogue import conv_epilogue
     from sed_tpu_torch.ops.logmel_kernel import fused_logmel
     from sed_tpu_torch.train.checkpoint import save_best_checkpoint
     from sed_tpu_torch.train.prefetch import device_prefetch
@@ -1437,7 +1576,7 @@ def gamma_phase(card: str, dev) -> None:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         fused_logmel.launches = 0
-        conv_epilogue.launches = 0
+        reset_conv_counts()
         losses = []
         for i in range(13):
             if i == 3:
@@ -1495,7 +1634,7 @@ def gamma_phase(card: str, dev) -> None:
     loader = [{'audio_name': np.array(names[i:i + 12]),
                'waveform': feats[i:i + 12]} for i in range(0, 32, 12)]
     fused_logmel.launches = 0
-    conv_epilogue.launches = 0
+    reset_conv_counts()
     out_gpu = Evaluator(state.model, dev).forward(loader)
     assert fused_logmel.launches == 0
     check_epilogues('[15] gamma Evaluator', state.model, len(loader))
@@ -1621,7 +1760,6 @@ def timed_train(model_type, cfg, dev, compute_dtype=None, steps: int = 25,
     ``run(weak, strong, generator)``, the losses, the skipped steps, the
     wall of the timed steps, the peak memory and the kernel launches."""
     import torch
-    from sed_tpu_torch.ops.conv_epilogue import conv_epilogue
     from sed_tpu_torch.ops.logmel_kernel import fused_logmel
     from sed_tpu_torch.train.prefetch import device_prefetch
     from sed_tpu_torch.train.step import init_loss_scale
@@ -1643,7 +1781,7 @@ def timed_train(model_type, cfg, dev, compute_dtype=None, steps: int = 25,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     fused_logmel.launches = 0
-    conv_epilogue.launches = 0
+    reset_conv_counts()
     losses, skipped = [], 0
     for i in range(steps):
         if i == warmup:
@@ -1669,7 +1807,6 @@ def bf16_phase(card: str, dev, cfg, pcm, gpu) -> int:
     import numpy as np
     import torch
     from sed_tpu_torch.compat.from_flax import load_npz
-    from sed_tpu_torch.ops.conv_epilogue import conv_epilogue
     from sed_tpu_torch.ops.logmel_kernel import fused_logmel
     from sed_tpu_torch.serve.engine import SedInferenceEngine
     model_type = 'Cnn_9layers_Gru_FrameAtt'
@@ -1678,7 +1815,7 @@ def bf16_phase(card: str, dev, cfg, pcm, gpu) -> int:
                                       compute_dtype=torch.bfloat16),
                              cfg, dev, batch_size=32)
     fused_logmel.launches = 0
-    conv_epilogue.launches = 0
+    reset_conv_counts()
     ev_b, _ = b16.predict_clips(pcm)
     launches = fused_logmel.launches
     assert launches > 0, 'the bf16 path did not launch the log-mel kernel'
@@ -1822,7 +1959,6 @@ def _dp_rank(rank: int, n: int, store: str, model_type: str, weak: dict,
     import torch
     import torch.distributed as dist
     from sed_tpu_torch.config import AUDIO_16K
-    from sed_tpu_torch.ops.conv_epilogue import conv_epilogue
     from sed_tpu_torch.ops.logmel_kernel import fused_logmel
     from sed_tpu_torch.parallel.mesh import shard_batch
     from sed_tpu_torch.serve.engine import disable_tf32
@@ -1835,7 +1971,7 @@ def _dp_rank(rank: int, n: int, store: str, model_type: str, weak: dict,
         step = train_step(state, AUDIO_16K, group=dist.group.WORLD)
         w, s = shard_batch(weak, device=dev), shard_batch(strong, device=dev)
         fused_logmel.launches = 0
-        conv_epilogue.launches = 0
+        reset_conv_counts()
         metrics = step(w, [s], torch.Generator(device=dev).manual_seed(seed))
         torch.cuda.synchronize()
         check_epilogues(f'[17] rank {rank}', state.model, 0)
@@ -1856,7 +1992,6 @@ def parallel_phase(card: str, dev, cfg, pcm, gpu, adpcm) -> int:
     import numpy as np
     import torch
     import torch.distributed as dist
-    from sed_tpu_torch.ops.conv_epilogue import conv_epilogue
     from sed_tpu_torch.ops.logmel_kernel import fused_logmel
     from sed_tpu_torch.parallel.distributed import spawn_ranks
     from sed_tpu_torch.parallel.dryrun import dryrun_multichip
@@ -1869,7 +2004,7 @@ def parallel_phase(card: str, dev, cfg, pcm, gpu, adpcm) -> int:
     launches = 0
     for name, wire in (('int16', pcm), ('adpcm4', adpcm)):
         fused_logmel.launches = 0
-        conv_epilogue.launches = 0
+        reset_conv_counts()
         got = two.predict_clips(wire)
         launched = fused_logmel.launches
         assert launched > 0, f'the replicas did not launch the kernel ({name})'
@@ -1915,7 +2050,7 @@ def parallel_phase(card: str, dev, cfg, pcm, gpu, adpcm) -> int:
                 step = train_step(state, cfg, group=dist.group.WORLD
                                   if tag == 'dp' else None)
                 fused_logmel.launches = 0
-                conv_epilogue.launches = 0
+                reset_conv_counts()
                 losses[tag] = step(to(weak), [to(strong)], torch.Generator(
                     device=dev).manual_seed(seed))['loss'].item()
                 check_epilogues(f'[17] (b) {tag}', state.model, 0)
@@ -2019,7 +2154,6 @@ def resident_phase(card: str, dev, cfg, clips, gpu, cpu) -> tuple:
     from sed_tpu_torch.data import audio_io
     from sed_tpu_torch.native import adpcm_native
     from sed_tpu_torch.ops import wire as wire_ops
-    from sed_tpu_torch.ops.conv_epilogue import conv_epilogue
     from sed_tpu_torch.ops.logmel_kernel import fused_logmel
     sr = cfg.sample_rate
     n = len(clips)
@@ -2037,7 +2171,7 @@ def resident_phase(card: str, dev, cfg, clips, gpu, cpu) -> tuple:
         launched or an epilogue of a forward was not the kernel."""
         nonlocal launches
         fused_logmel.launches = 0
-        conv_epilogue.launches = 0
+        reset_conv_counts()
         out = fn()
         launched = fused_logmel.launches
         assert launched > 0, f'{what} did not launch the log-mel kernel'
@@ -2272,7 +2406,7 @@ def learning_phase(card: str, dev, cfg, pcm) -> tuple:
         epilogue kernels; the first two added up."""
         fused_logmel.launches = 0
         wire_ops._adpcm_decode.launches = 0
-        conv_epilogue.launches = 0
+        reset_conv_counts()
         out = fn(*args, **kwargs)
         n = (fused_logmel.launches, wire_ops._adpcm_decode.launches,
              conv_epilogue.launches)
@@ -2555,6 +2689,12 @@ def main() -> None:
               'result')
         return
 
+    if '--conv-only' in sys.argv[1:]:
+        conv_checks(card, dev)
+        print('[6] conv3x3 checks done; phases 3-19 were not run: no '
+              'result')
+        return
+
     if '--resident-only' in sys.argv[1:]:
         cfg = config.AUDIO_16K
         ckpt = os.path.join(REPO, 'tools', 'bench_checkpoint.npz')
@@ -2619,7 +2759,7 @@ def main() -> None:
     pcm = (np.clip(clips, -1, 1) * 32767).astype(np.int16)
 
     fused_logmel.launches = 0
-    conv_epilogue.launches = 0
+    reset_conv_counts()
     ev_gpu, xml_gpu = gpu.predict_clips(pcm)
     launches = fused_logmel.launches
     epilogues = conv_epilogue.launches
@@ -2686,6 +2826,7 @@ def main() -> None:
           f'{n_events} events')
     profile_batch(gpu, pcm[:32], '6')
     epilogue = epilogue_checks(card, dev)
+    convs = conv_checks(card, dev)
 
     # -- 7. the Transformer on the card ------------------------------------
     from sed_tpu_torch.compat.bench_weights import transformer_variables
@@ -2700,7 +2841,7 @@ def main() -> None:
     tgpu = SedInferenceEngine(transformer(dev), cfg, dev, batch_size=32)
     tcpu = SedInferenceEngine(transformer('cpu'), cfg, 'cpu', batch_size=32)
     fused_logmel.launches = 0
-    conv_epilogue.launches = 0
+    reset_conv_counts()
     ev_gpu, xml_gpu = tgpu.predict_clips(pcm)
     t_launches = fused_logmel.launches
     assert t_launches > 0, 'the Transformer path did not launch the kernel'
@@ -2755,7 +2896,7 @@ def main() -> None:
             wgpu = SedInferenceEngine(gpu.model, cfg, dev, **kw)
             wcpu = SedInferenceEngine(cpu.model, cfg, 'cpu', **kw)
             fused_logmel.launches = 0
-            conv_epilogue.launches = 0
+            reset_conv_counts()
             ev_gpu = wgpu.predict_clips_windowed(clips10, names, 10.0, step)
             launched = fused_logmel.launches
             assert launched > 0, 'the windowed path did not launch the kernel'
@@ -2793,7 +2934,7 @@ def main() -> None:
                'waveform': clips10[i:i + 12]}
               for i in range(0, len(clips10), 12)]   # 12, 12, 8
     fused_logmel.launches = 0
-    conv_epilogue.launches = 0
+    reset_conv_counts()
     out_gpu = Evaluator(gpu.model, dev).forward(loader)
     e_launches = fused_logmel.launches
     assert e_launches > 0, 'the evaluator did not launch the kernel'
@@ -2846,7 +2987,7 @@ def main() -> None:
         buf = wires[name][:len(clips)]
         fused_logmel.launches = 0
         wire_ops._adpcm_decode.launches = 0
-        conv_epilogue.launches = 0
+        reset_conv_counts()
         ev_gpu, xml_gpu = gpu.predict_clips(buf)
         launched = fused_logmel.launches
         assert launched > 0, f'the {name} wire did not launch the kernel'
@@ -2881,7 +3022,7 @@ def main() -> None:
 
     # -- 11. predict_clips_stream ------------------------------------------
     fused_logmel.launches = 0
-    conv_epilogue.launches = 0
+    reset_conv_counts()
     stream_out = gpu.predict_clips_stream(
         bench[i:i + 32] for i in range(0, len(bench), 32))
     s_launches = fused_logmel.launches
@@ -2916,7 +3057,7 @@ def main() -> None:
     rng = np.random.RandomState(12)
     sess = StreamingSed(gpu, 'stream')
     fused_logmel.launches = 0
-    conv_epilogue.launches = 0
+    reset_conv_counts()
     t0 = time.perf_counter()
     pos, feeds, early = 0, 0, []
     while pos < len(stream):
@@ -3026,7 +3167,15 @@ def main() -> None:
         # the sums over the 8 epilogues of a 32 x 5 s forward
         **epilogue,
         # no single PyTorch call computes BatchNorm, ReLU and the pool
-        'library_ms': None}]}))
+        'library_ms': None}, {
+        'name': 'conv3x3', 'route': 'cuda',
+        'source': 'sed_tpu_torch/csrc/conv3x3.cu',
+        # sed_tpu leaves the convolutions to XLA
+        'replaces': None,
+        'launches': sum(conv3x3_launches),
+        # the sums over the 8 convolutions of a 32 x 5 s forward; the
+        # library is cuDNN's fp32 F.conv2d under the measured choice
+        **convs}]}))
     print(card_line())
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

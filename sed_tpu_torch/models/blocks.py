@@ -10,8 +10,9 @@ r * (W_hn h + b_hn))`` are what ``sed_tpu`` stores and computes.
 ``BatchNorm`` keeps flax's running statistics in training mode (over
 the global batch of a process group when it has one), ``ConvBlock``
 takes ``sed_tpu``'s bf16 compute dtype and, in eval mode on the card,
-runs each convolution's BatchNorm, ReLU and pool as one kernel
-(``epilogue``), and ``init_weights`` draws a fresh model from
+runs its float32 convolutions in one kernel each (``Conv2d``,
+``ops/conv3x3``) and each convolution's BatchNorm, ReLU and pool as one
+kernel (``epilogue``), and ``init_weights`` draws a fresh model from
 ``sed_tpu``'s initialisers.
 """
 
@@ -26,7 +27,7 @@ from torch import nn
 from torch.nn.modules.batchnorm import _BatchNorm
 
 from sed_tpu_torch.augment.functional import rand_rows
-from sed_tpu_torch.ops import conv_epilogue
+from sed_tpu_torch.ops import conv3x3, conv_epilogue
 from sed_tpu_torch.utils.profiling import span
 
 
@@ -193,14 +194,19 @@ class Conv2d(nn.Conv2d):
     state stay float32.  The cast is inside ``forward``, so hooks on the
     module (FSDP's all-gather) see the call.
 
-    In eval mode on the card the convolution runs under
-    ``measured_choice``: for one layer of the 5 s conv stack (128
-    channels at 250 x 32) cuDNN's heuristic picks an FFT convolution
-    nine times slower than the implicit GEMM that timing picks.  Training
-    mode and CPU tensors run as ``nn.Conv2d`` does.  Counters:
-    ``measured_calls``, the convolutions run so; ``searched_shapes``,
-    those whose shape (input, weight, compute dtype, device) the process
-    had not run so before, each inside a ``sed::conv.search`` span."""
+    In eval mode on the card a float32 3x3 convolution (stride 1,
+    padding 1, no bias, ``compute_dtype`` None) whose output no gradient
+    is wanted for runs in ``ops/conv3x3.conv3x3``'s kernel (3xTF32 on the
+    tensor cores), on weight planes cached on the module and made anew
+    when the weight's storage or version changes.  Any other eval-mode
+    convolution on the card runs under ``measured_choice``: for one layer
+    of the 5 s conv stack (128 channels at 250 x 32) cuDNN's heuristic
+    picks an FFT convolution nine times slower than the implicit GEMM
+    that timing picks.  Training mode and CPU tensors run as
+    ``nn.Conv2d`` does.  Counters: ``measured_calls``, the convolutions
+    run under the measured choice; ``searched_shapes``, those whose shape
+    (input, weight, compute dtype, device) the process had not run so
+    before, each inside a ``sed::conv.search`` span."""
 
     measured_calls = 0
     searched_shapes = 0
@@ -212,10 +218,19 @@ class Conv2d(nn.Conv2d):
         # what, besides the input and the compute dtype, keys a plan
         self._geometry = (tuple(self.weight.shape), self.stride,
                           self.padding, self.dilation, self.groups)
+        self._kernel_geometry = (
+            self.kernel_size == (3, 3) and self.stride == (1, 1)
+            and self.padding == (1, 1) and self.dilation == (1, 1)
+            and self.groups == 1 and self.bias is None
+            and self.padding_mode == 'zeros')
+        self._planes = None     # (weight key, conv3x3.weight_planes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training or not _on_card(x):
             return self._compute(x)
+        if self._takes_kernel(x):
+            return conv3x3.conv3x3(x.contiguous(), self.weight,
+                                   self._weight_planes())
         key = (x.shape, x.dtype, x.device, self.compute_dtype,
                self._geometry)
         Conv2d.measured_calls += 1
@@ -227,6 +242,23 @@ class Conv2d(nn.Conv2d):
         Conv2d._searched.add(key)
         Conv2d.searched_shapes += 1
         return out
+
+    def _takes_kernel(self, x: torch.Tensor) -> bool:
+        return (self._kernel_geometry and self.compute_dtype is None
+                and x.dtype == torch.float32
+                and self.weight.dtype == torch.float32
+                and not (torch.is_grad_enabled() and (
+                    x.requires_grad or self.weight.requires_grad))
+                and conv3x3.takes(x))
+
+    def _weight_planes(self) -> torch.Tensor:
+        w = self.weight
+        if w.is_inference():    # no version counter to key a cache on
+            return conv3x3.weight_planes(w)
+        key = (w.data_ptr(), w._version, w.device)
+        if self._planes is None or self._planes[0] != key:
+            self._planes = (key, conv3x3.weight_planes(w))
+        return self._planes[1]
 
     def _compute(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype

@@ -44,9 +44,10 @@ _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + \
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
     """float32 -> nearest TF32 value (10 mantissa bits), ties away from
-    zero: ``cvt.rna.tf32.f32``, on the int32 view."""
-    bits = x.to(torch.float32).contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+    zero: ``cvt.rna.tf32.f32``, on the int32 view; NaN stays NaN."""
+    x = x.to(torch.float32).contiguous()
+    rounded = ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    return torch.where(torch.isnan(x), x, rounded)
 
 
 def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

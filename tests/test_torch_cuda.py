@@ -763,23 +763,27 @@ def test_cuda_resident_passes_match_cpu(device):
     assert cpu.predict_rows_resident(rows) == want
 
 
-def _bench_forward(device, clips: int = 32) -> dict:
+def _bench_forward(device, clips: int = 32, grad: bool = False) -> dict:
     """The bench checkpoint's GRU model in eval mode on ``clips`` 5 s
-    bench-corpus clips: {output name: numpy array}."""
+    bench-corpus clips: {output name: numpy array}.  ``grad``: with
+    autograd on (the parameters want gradients), so that the float32 3x3
+    convolutions run in cuDNN under the measured choice, not in
+    ``csrc/conv3x3.cu``."""
     from sed_tpu_torch.bench_corpus import make_clips
     cfg = config.AUDIO_16K
     wav = torch.from_numpy(make_clips(clips, cfg.sample_rate, seconds=5,
                                       seed=0)).to(device)
     model = load_npz(CKPT, MODEL, cfg, device).eval()
-    with torch.inference_mode():
+    with torch.inference_mode(not grad):
         out = model(wav)
-    return {k: out[k].cpu().numpy()
+    return {k: out[k].detach().cpu().numpy()
             for k in ('framewise_output', 'clipwise_output')}
 
 
 def test_cuda_measured_conv_choice_matches_the_heuristic(device, tmp_path):
     """32 x 5 s clips through the conv stack under cuDNN's measured
-    choice are within 1e-5 of the same forward under its heuristic
+    choice (a forward with autograd on, which the 3x3 kernel does not
+    take) are within 1e-5 of the same forward under its heuristic
     (benchmark off), run in a process of its own: the plan that a
     process picks first for a shape is the one it keeps."""
     path = tmp_path / 'heuristic.npz'
@@ -789,14 +793,14 @@ def test_cuda_measured_conv_choice_matches_the_heuristic(device, tmp_path):
             'torch.backends.cudnn.benchmark = False; '
             'blocks._on_card = lambda x: False; '
             'import test_torch_cuda as t; '
-            'np.savez({p!r}, **t._bench_forward("cuda"))').format(
+            'np.savez({p!r}, **t._bench_forward("cuda", grad=True))').format(
                 r=REPO, t=os.path.join(REPO, 'tests'), p=str(path))
     import subprocess
     subprocess.run([sys.executable, '-c', code], check=True, cwd=REPO,
                    timeout=600)
     from sed_tpu_torch.models import blocks
     calls = blocks.Conv2d.measured_calls
-    got = _bench_forward(device)
+    got = _bench_forward(device, grad=True)
     assert blocks.Conv2d.measured_calls == calls + 8
     want = np.load(path)
     for k, v in got.items():
@@ -806,7 +810,8 @@ def test_cuda_measured_conv_choice_matches_the_heuristic(device, tmp_path):
 def test_cuda_conv_search_once_per_shape(device, monkeypatch):
     from sed_tpu_torch.models import blocks
     monkeypatch.setattr(blocks.Conv2d, '_searched', set())
-    block = blocks.ConvBlock(1, 16).to(device).eval()
+    # bf16: a compute dtype the 3x3 kernel does not take
+    block = blocks.ConvBlock(1, 16, dtype=torch.bfloat16).to(device).eval()
     before = torch.backends.cudnn.benchmark
     calls, searched = blocks.Conv2d.measured_calls, \
         blocks.Conv2d.searched_shapes
@@ -820,15 +825,16 @@ def test_cuda_conv_search_once_per_shape(device, monkeypatch):
 
 
 def test_cuda_no_fft_convolution_at_5s(device):
-    """A profiled eval-mode forward of 32 x 5 s clips, after a warm one,
-    runs its convolutions with no FFT kernel (cuDNN's heuristic picks one
-    for one layer of the 5 s stack)."""
+    """A profiled eval-mode forward of 32 x 5 s clips with autograd on
+    (so that cuDNN, not the 3x3 kernel, runs the convolutions), after a
+    warm one, runs its convolutions with no FFT kernel (cuDNN's heuristic
+    picks one for one layer of the 5 s stack)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    _bench_forward(device)
+    _bench_forward(device, grad=True)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _bench_forward(device)
+        _bench_forward(device, grad=True)
     events = list(prof.events())
     kernels = {e.name for e in events if e.device_type != DeviceType.CPU}
     convs = [e for e in events if e.name == 'aten::cudnn_convolution']
@@ -1020,3 +1026,144 @@ def test_cuda_gru_forward_through_the_epilogue_matches_cpu(device):
     loss = model(wav.to(device), spec_augment=False)['clipwise_output'].sum()
     loss.backward()
     assert ce.conv_epilogue.launches == launches
+
+
+# ---------------------------------------------------------------------------
+# csrc/conv3x3.cu: the eval-mode 3x3 convolutions in 3xTF32 on the tensor
+# cores.  Error against float64: max |y - y64| over max |y64|.  The kernel
+# is fp32-accurate if its error is within CONV_FP32_FACTOR of cuDNN's fp32
+# convolution's on the same input, and a lower precision would show: one
+# TF32 pass is CONV_TF32_MARGIN times the kernel's error or more.
+# ---------------------------------------------------------------------------
+
+CONV_FP32_FACTOR = 4.0
+CONV_TF32_MARGIN = 50.0
+
+
+def _stack_inputs(device, clips: int, seconds: float):
+    """The input of each of the bench checkpoint GRU's 8 convolutions on
+    ``clips`` bench-corpus clips of ``seconds``: [(conv module, input)]."""
+    from sed_tpu_torch.bench_corpus import make_clips
+    from sed_tpu_torch.models import blocks
+    cfg = config.AUDIO_16K
+    wav = make_clips(clips, cfg.sample_rate, seconds=int(np.ceil(seconds)),
+                     seed=clips)[:, :int(seconds * cfg.sample_rate)]
+    wav = torch.from_numpy(np.ascontiguousarray(wav)).to(device)
+    model = load_npz(CKPT, MODEL, cfg, device).eval()
+    seen, hooks = [], []
+    for m in model.modules():
+        if isinstance(m, blocks.Conv2d):
+            hooks.append(m.register_forward_hook(
+                lambda mod, args, out: seen.append((mod, args[0]))))
+    with torch.inference_mode():
+        model(wav)
+    for h in hooks:
+        h.remove()
+    assert len(seen) == 8
+    return seen
+
+
+def _conv_errors(x, w, rows: int = 4):
+    """(kernel, cuDNN fp32, one TF32 pass) error against float64 on the
+    first ``rows`` images, each convolution run on the whole batch."""
+    from sed_tpu_torch.ops import conv3x3 as cv
+    from sed_tpu_torch.ops.logmel_kernel import tf32_round
+    launches = cv.conv3x3.launches
+    got = cv.conv3x3(x, w)
+    assert cv.conv3x3.launches == launches + 1
+    lib = F.conv2d(x, w, padding=1)
+    one = F.conv2d(tf32_round(x), tf32_round(w), padding=1)
+    ref = F.conv2d(x[:rows].double(), w.double(), padding=1)
+    return tuple(((y[:rows].double() - ref).abs().max()
+                  / ref.abs().max()).item() for y in (got, lib, one))
+
+
+@pytest.mark.parametrize('clips,seconds', [(32, 5.0), (5, 5.0), (1, 5.0),
+                                           (27, 6.0), (9, 6.0), (3, 7.3)],
+                         ids=['5s-b32', '5s-b5', '5s-b1', '6s-b27', '6s-b9',
+                              '7.3s-b3'])
+def test_cuda_conv3x3_fp32_accurate_on_the_serving_paths(device, clips,
+                                                         seconds):
+    """Each convolution of the stack on bench-corpus activations and the
+    bench checkpoint's weights, at the serving paths' batches and lengths
+    (5 s at 32, 5 and 1, the 6 s windows' 27 and 9, a ragged 7.3 s): the
+    kernel's error against float64 is within CONV_FP32_FACTOR of cuDNN's
+    fp32 error and CONV_TF32_MARGIN below one TF32 pass's."""
+    for i, (conv, x) in enumerate(_stack_inputs(device, clips, seconds)):
+        with torch.inference_mode():
+            err, lib, one = _conv_errors(x.contiguous(),
+                                         conv.weight.detach())
+        print(f'conv {i} {tuple(x.shape)}: kernel {err:.3e} cuDNN fp32 '
+              f'{lib:.3e} one TF32 pass {one:.3e}')
+        assert err <= CONV_FP32_FACTOR * lib, (i, err, lib)
+        assert err * CONV_TF32_MARGIN <= one, (i, err, one)
+
+
+@pytest.mark.parametrize('shape,offset', [
+    ((2, 7, 37, 13), 0),        # ragged T and F, scalar copies
+    ((1, 64, 5, 3), 1),         # a base address off 16 bytes
+    ((3, 1, 300, 1), 0),        # width 1, the taps as K
+    ((2, 20, 9, 60), 0),        # Cin not a multiple of 8
+    ((1, 512, 62, 8), 0),       # split K
+])
+def test_cuda_conv3x3_ragged_shapes(device, shape, offset):
+    from sed_tpu_torch.ops import conv3x3 as cv
+    gen = torch.Generator(device=device).manual_seed(shape[1])
+    n = int(np.prod(shape))
+    x = torch.randn(n + offset, device=device, generator=gen)[offset:] \
+        .view(shape)
+    w = torch.randn(70, shape[1], 3, 3, device=device, generator=gen) \
+        / (3 * shape[1] ** 0.5)
+    err, lib, one = _conv_errors(x, w, rows=shape[0])
+    assert err <= CONV_FP32_FACTOR * lib and err * CONV_TF32_MARGIN <= one, \
+        (err, lib, one)
+
+
+@pytest.mark.parametrize('batch', [1, 5])
+def test_cuda_conv3x3_split_k_is_deterministic(device, batch):
+    """At batches whose block-4 tiles are fewer than the SMs the kernel
+    splits K; two runs give the same bits."""
+    from sed_tpu_torch.ops import conv3x3 as cv
+    assert cv.splits(batch, 512, 512, 62 * 8, 132) > 1
+    gen = torch.Generator(device=device).manual_seed(batch)
+    x = torch.randn(batch, 512, 62, 8, device=device, generator=gen).relu()
+    w = torch.randn(512, 512, 3, 3, device=device, generator=gen) * 0.02
+    planes = cv.weight_planes(w)
+    a = cv.conv3x3(x, w, planes)
+    b = cv.conv3x3(x, w, planes)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_cuda_conv3x3_launches_eight_a_forward(device):
+    """A float32 eval forward of the bench GRU takes the kernel for its
+    8 convolutions and none to cuDNN's measured choice; a forward with
+    autograd on takes it for none."""
+    from sed_tpu_torch.models import blocks
+    from sed_tpu_torch.ops import conv3x3 as cv
+    launches, calls = cv.conv3x3.launches, blocks.Conv2d.measured_calls
+    _bench_forward(device, clips=4)
+    assert (cv.conv3x3.launches - launches,
+            blocks.Conv2d.measured_calls - calls) == (8, 0)
+    _bench_forward(device, clips=4, grad=True)
+    assert (cv.conv3x3.launches - launches,
+            blocks.Conv2d.measured_calls - calls) == (8, 8)
+
+
+def test_cuda_conv3x3_refuses_what_it_does_not_take(device):
+    from sed_tpu_torch.ops import conv3x3 as cv
+    x = torch.randn(2, 4, 10, 16, device=device)
+    w = torch.randn(8, 4, 3, 3, device=device)
+    with pytest.raises(ValueError, match='contiguous'):
+        cv.conv3x3(x.transpose(2, 3), w)
+    with pytest.raises(ValueError, match='float32'):
+        cv.conv3x3(x.double(), w.double())
+    with pytest.raises(ValueError, match='float32'):
+        cv.conv3x3(x, w.double())
+    with pytest.raises(ValueError, match=r'\(Cout, 4, 3, 3\)'):
+        cv.conv3x3(x, torch.randn(8, 5, 3, 3, device=device))
+    with pytest.raises(ValueError, match='no backward'):
+        cv.conv3x3(x, w.requires_grad_())
+    with pytest.raises(ValueError, match='no backward'):
+        cv.conv3x3(x.requires_grad_(), w.detach())
+    with pytest.raises(ValueError, match='widths'):
+        cv.conv3x3(torch.randn(1, 4, 3, 700, device=device), w.detach())

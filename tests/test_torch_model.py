@@ -286,10 +286,11 @@ def test_conv_block_on_cpu_unchanged_and_uncounted(monkeypatch, training,
 
 @pytest.mark.parametrize('benchmark', [False, True])
 def test_measured_choice_scope_and_counters(monkeypatch, benchmark):
-    """With the card predicate faked true, an eval-mode ConvBlock runs
-    each convolution with cuDNN's benchmark flag on, counts it, searches
-    (inside a ``sed::conv.search`` span) once per new shape, and leaves
-    every cuDNN flag as it found it, also when the forward raises."""
+    """With the card predicate faked true, an eval-mode ConvBlock in bf16
+    (a compute dtype the 3x3 kernel does not take) runs each convolution
+    with cuDNN's benchmark flag on, counts it, searches (inside a
+    ``sed::conv.search`` span) once per new shape, and leaves every cuDNN
+    flag as it found it, also when the forward raises."""
     from torch.profiler import ProfilerActivity, profile
     monkeypatch.setattr(blocks, '_on_card', lambda x: True)
     monkeypatch.setattr(blocks.Conv2d, '_searched', set())
@@ -300,7 +301,7 @@ def test_measured_choice_scope_and_counters(monkeypatch, benchmark):
         inside.append(torch.backends.cudnn.benchmark)
         return compute(self, x)
     monkeypatch.setattr(blocks.Conv2d, '_compute', spy)
-    block = blocks.ConvBlock(3, 8).eval()
+    block = blocks.ConvBlock(3, 8, dtype=torch.bfloat16).eval()
     monkeypatch.setattr(torch.backends.cudnn, 'benchmark', benchmark)
     flags = _cudnn_flags()
     calls, searched = blocks.Conv2d.measured_calls, \
