@@ -94,12 +94,15 @@ checks it against the same engine on the CPU.  Phases:
 14. the other model families, at full width and depth on seeded weights
     (``compat.bench_weights.seeded_model``): for each of the nine names
     (Conformer att / avg / 14-layer, the two token-pooling Conformers,
-    VGGish att / GRU-att / avg, CNN14) ``predict_clips`` on the 64 int16
-    clips, GPU against CPU: framewise and clipwise within 1e-4 (logits:
-    of max(1, |x|)), events compared as multisets with the differing
-    ones counted and bounded (seeded weights leave many probabilities
-    at a threshold; XML identical where the events are), clips/s over
-    512 clips; ``Cnn_9layers_Conformer_FrameAtt`` through
+    VGGish att / GRU-att / avg, CNN14), and for CNN14 again at its
+    published 32 kHz front end (``AUDIO_32K``: 64 clips of 160000
+    samples, 12 3x3 convolutions and 12 epilogues a forward, up to 2048
+    channels), ``predict_clips`` on the 64 int16 clips, GPU against CPU:
+    framewise and clipwise within 1e-4 (logits: of max(1, |x|)), events
+    compared as multisets with the differing ones counted and bounded
+    (seeded weights leave many probabilities at a threshold; XML
+    identical where the events are), clips/s over 512 clips;
+    ``Cnn_9layers_Conformer_FrameAtt`` through
     ``predict_clips_windowed`` at [0.5, 6] on 16 clips of 10 s and
     ``StreamingSed`` on 30 s, GPU against CPU, and a profiler breakdown
     of one serving batch by op group (conv stack, linear layers,
@@ -1255,6 +1258,7 @@ def families_phase(card: str, dev, cfg, pcm) -> int:
     import copy
     import numpy as np
     import torch
+    from sed_tpu_torch import config
     from sed_tpu_torch import losses as losses_lib
     from sed_tpu_torch.bench_corpus import make_clips
     from sed_tpu_torch.cli import common
@@ -1269,43 +1273,47 @@ def families_phase(card: str, dev, cfg, pcm) -> int:
     from sed_tpu_torch.train.step import make_train_step
     from sed_tpu_torch.utils.paths import Workspace
     total_launches = 0
-    bench = np.concatenate([pcm] * 8)                      # 512 clips
 
-    def engines(name, **kw):
-        model = seeded_model(name, cfg, seed=0)
+    def engines(name, rate, **kw):
+        model = seeded_model(name, rate, seed=0)
         kw = dict(dict(batch_size=32), **kw)
-        return (SedInferenceEngine(copy.deepcopy(model), cfg, dev, **kw),
-                SedInferenceEngine(model, cfg, 'cpu', **kw))
+        return (SedInferenceEngine(copy.deepcopy(model), rate, dev, **kw),
+                SedInferenceEngine(model, rate, 'cpu', **kw))
 
-    # -- serving, each of the nine names ---------------------------------
+    # -- serving, each of the nine names, and CNN14 at 32 kHz -------------
+    pcm32 = (np.clip(make_clips(64, config.AUDIO_32K.sample_rate, seconds=5,
+                                seed=0), -1, 1) * 32767).astype(np.int16)
+    served = [(name, cfg, pcm) for name in FAMILY_NAMES] + [
+        ('Cnn14_DecisionLevelAtt', config.AUDIO_32K, pcm32)]
     kept = {}
-    for name in FAMILY_NAMES:
+    for name, rate, clips in served:
         t0 = time.perf_counter()
-        gpu, cpu = engines(name)
+        gpu, cpu = engines(name, rate)
         fused_logmel.launches = 0
         reset_conv_counts()
-        ev_gpu, xml_gpu = gpu.predict_clips(pcm)
+        ev_gpu, xml_gpu = gpu.predict_clips(clips)
         launched = fused_logmel.launches
         assert launched > 0, f'{name} did not launch the log-mel kernel'
         check_epilogues(f'[14] {name}', gpu.model, launched)
         total_launches += launched
-        ev_cpu, xml_cpu = cpu.predict_clips(pcm)
+        ev_cpu, xml_cpu = cpu.predict_clips(clips)
         events = check_events(name, ev_gpu, ev_cpu)
         if ev_gpu == ev_cpu:
             assert xml_gpu == xml_cpu, f'{name}: XML differs, events do not'
-        fw_gpu, cw_gpu = gpu.infer_framewise(pcm)
-        fw_cpu, cw_cpu = cpu.infer_framewise(pcm)
+        fw_gpu, cw_gpu = gpu.infer_framewise(clips)
+        fw_cpu, cw_cpu = cpu.infer_framewise(clips)
         assert fw_gpu.shape == fw_cpu.shape == (64, gpu._out_frames, 25)
         assert np.isfinite(fw_gpu).all() and np.isfinite(cw_gpu).all()
         scale = (lambda x: np.maximum(1.0, np.abs(x))) \
             if name in LOGIT_MODELS else (lambda x: 1.0)
         fw_err = float((np.abs(fw_gpu - fw_cpu) / scale(fw_cpu)).max())
         cw_err = float((np.abs(cw_gpu - cw_cpu) / scale(cw_cpu)).max())
-        rates, _ = clips_per_s(gpu, bench)
-        print(f'[14] {name} predict_clips on {card}: 64 clips, '
-              f'{gpu._out_frames} frames a clip, {events}, log-mel kernel '
-              f'launches {launched}; max |framewise gpu - cpu| = {fw_err!r}, '
-              f'clipwise {cw_err!r}'
+        rates, _ = clips_per_s(gpu, np.concatenate([clips] * 8))
+        print(f'[14] {name} ({rate.name}) predict_clips on {card}: 64 '
+              f'clips, {gpu._out_frames} frames a clip, {events}, log-mel '
+              f'kernel launches {launched} (3x3 {conv3x3_launches[-1]}, '
+              f'epilogue {epilogue_launches[-1]}); max |framewise gpu - cpu| '
+              f'= {fw_err!r}, clipwise {cw_err!r}'
               + (' (logits, over max(1, |x|))' if name in LOGIT_MODELS
                  else '')
               + f'; 512 int16 clips at batch 32: '
@@ -1316,7 +1324,7 @@ def families_phase(card: str, dev, cfg, pcm) -> int:
                     'Cnn_9layers_Conformer'):
             kept[name] = (gpu, cpu)
             by = profile_by_group(
-                lambda: gpu.predict_clips(pcm[:32]), SERVE_OP_GROUPS, '14',
+                lambda: gpu.predict_clips(clips[:32]), SERVE_OP_GROUPS, '14',
                 f'{name} predict_clips(32 clips)', top=12)
             assert by['log-mel'] > 0, 'the profile lacks the log-mel kernel'
             attention = by['attention products'] + by['softmax']

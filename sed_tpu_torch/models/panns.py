@@ -10,6 +10,12 @@ packed 10 s clip).
 The 3-wide pools pad one frame each side: the max pool with -inf, the
 average pool with zeros that it counts (the edges divide by 3), as
 flax's ``avg_pool`` with explicit padding does.
+
+``conv_channels`` narrows the stack (tests and rehearsals); the
+interpolation repeats each frame 2^(blocks - 1) times, 32 at the
+published six blocks.  Everything after the conv stack (smoothing, fc1,
+attention, interpolation and pad) runs inside a ``sed::panns.head``
+span.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from torch import nn
 
 from sed_tpu_torch.models import blocks
 from sed_tpu_torch.models.base import SedFeatureBase
+from sed_tpu_torch.utils.profiling import span
 
 
 class Cnn14DecisionLevelAtt(SedFeatureBase):
@@ -29,8 +36,11 @@ class Cnn14DecisionLevelAtt(SedFeatureBase):
 
     def __init__(self, cfg, classes_num: int = 25,
                  feature_type: str = 'logmel', block_dropout: float = 0.2,
-                 fc_dropout: float = 0.5, compute_dtype=None):
+                 fc_dropout: float = 0.5, compute_dtype=None,
+                 conv_channels=None):
         super().__init__(cfg, feature_type, compute_dtype=compute_dtype)
+        if conv_channels is not None:
+            self.conv_channels = tuple(conv_channels)
         self.block_dropout = block_dropout
         self.fc_dropout = fc_dropout
         in_ch = 1
@@ -57,7 +67,11 @@ class Cnn14DecisionLevelAtt(SedFeatureBase):
             if self.training:
                 x = blocks.dropout(x, self.block_dropout, generator)
         x = torch.mean(x, dim=3)                             # (B, 2048, T')
+        with span('panns.head'):
+            return self._head(x, frames_num, generator)
 
+    def _head(self, x: torch.Tensor, frames_num: int,
+              generator: Optional[torch.Generator]) -> dict:
         x = F.max_pool1d(x, 3, stride=1, padding=1) + F.avg_pool1d(
             x, 3, stride=1, padding=1, count_include_pad=True)
         x = x.transpose(1, 2)                                # (B, T', 2048)
@@ -68,7 +82,8 @@ class Cnn14DecisionLevelAtt(SedFeatureBase):
             x = blocks.dropout(x, self.fc_dropout, generator)
 
         clipwise, _, segmentwise = self.att_block(x)
-        framewise = blocks.interpolate(segmentwise, 32)
+        framewise = blocks.interpolate(segmentwise,
+                                       2 ** (len(self.conv_channels) - 1))
         if framewise.shape[1] < frames_num:
             framewise = blocks.pad_framewise_output(framewise, frames_num)
         return {'framewise_output': framewise,

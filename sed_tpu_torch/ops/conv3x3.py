@@ -98,6 +98,19 @@ def weight_planes(weight: torch.Tensor) -> torch.Tensor:
         tiles, blocks, 2, steps, BN * 8)
 
 
+def products(batch: int, cin: int, cout: int, height: int,
+             width: int) -> tuple:
+    """(the convolution's operations, those the launched tiles span) of
+    one launch, products as 2: 2 B H W Cout 9 Cin, and 2 B ceil(HW / BM)
+    BM ceil(Cout / BN) BN K, where K is the 16 taps of a 1-channel input
+    or 72 ceil(Cin / 8): a tile's rows never span two images, its
+    columns and its K run to whole blocks."""
+    k = 16 if cin == 1 else 72 * -(-cin // BK)
+    return (2 * batch * height * width * cout * 9 * cin,
+            2 * batch * -(-(height * width) // BM) * BM * -(-cout // BN)
+            * BN * k)
+
+
 def splits(batch: int, cin: int, cout: int, hw: int, sms: int) -> int:
     """How many runs of channel blocks the kernel splits K into: 1 where
     the output tiles fill the ``sms`` SMs, else enough runs (none empty)
@@ -126,7 +139,8 @@ def conv3x3(x: torch.Tensor, weight: torch.Tensor,
     ``x``'s channel count on its device, at a width ``takes`` allows.  It
     has no backward, and a ctypes call is invisible to autograd, so a
     CUDA input that would want a gradient raises instead of coming back
-    silently detached.  ``conv3x3.launches`` counts kernel launches."""
+    silently detached.  ``conv3x3.launches`` counts kernel launches,
+    ``conv3x3.flop`` and ``conv3x3.tile_flop`` their ``products``."""
     if x.device.type == 'cpu':
         return conv3x3_plain(x, weight)
     with span('conv.3x3'):
@@ -175,8 +189,13 @@ def _launch(x, weight, planes) -> torch.Tensor:
                   planes.data_ptr(), out.data_ptr(),
                   None if work is None else work.data_ptr(), b, cin, cout,
                   h, w, n)
+    flop, tile_flop = products(b, cin, cout, h, w)
     conv3x3.launches += 1
+    conv3x3.flop += flop
+    conv3x3.tile_flop += tile_flop
     return out
 
 
 conv3x3.launches = 0
+conv3x3.flop = 0
+conv3x3.tile_flop = 0
