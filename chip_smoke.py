@@ -505,9 +505,10 @@ def graph_launches(fn) -> int:
 
 
 # the conv epilogue and 3x3 convolution launches that the main-path phases
-# counted and checked
+# counted and checked, and the 3x3 launches on packed tiles among them
 epilogue_launches = []
 conv3x3_launches = []
+conv3x3_packed = []
 
 
 def reset_conv_counts() -> None:
@@ -517,16 +518,20 @@ def reset_conv_counts() -> None:
     from sed_tpu_torch.ops.conv_epilogue import conv_epilogue
     conv_epilogue.launches = 0
     conv3x3.launches = 0
+    conv3x3.packed = 0
 
 
-def check_epilogues(tag: str, model, forwards: int) -> None:
+def check_epilogues(tag: str, model, forwards: int, packed: int = 0) -> None:
     """Fails unless ``conv_epilogue.launches``, set to 0 before the run
     (``reset_conv_counts``), is 2 for each ConvBlock of ``model`` in each
     of its ``forwards`` eval forwards: every BatchNorm + ReLU (+ pool) of
-    the stack ran as the kernel; and unless ``conv3x3.launches`` is 1 for
+    the stack ran as the kernel; unless ``conv3x3.launches`` is 1 for
     each float32 3x3 ``blocks.Conv2d`` (stride 1, padding 1, no bias, no
     compute dtype) in each of them: every such convolution ran in
-    ``csrc/conv3x3.cu``.  A training run gives ``forwards`` 0: no launch."""
+    ``csrc/conv3x3.cu``; and unless ``conv3x3.packed`` is ``packed``: the
+    launches whose tiles hold several images (none in the 4-block stack,
+    whose smallest plane is 62 x 8).  A training run gives ``forwards``
+    0: no launch."""
     import torch
     from sed_tpu_torch.models.blocks import Conv2d, ConvBlock
     from sed_tpu_torch.ops.conv3x3 import conv3x3
@@ -546,6 +551,10 @@ def check_epilogues(tag: str, model, forwards: int) -> None:
         f'{tag}: {conv3x3.launches} 3x3 convolution launches, not {want} '
         f'({forwards} eval forwards of {convs} float32 3x3 convolutions)')
     conv3x3_launches.append(want)
+    assert conv3x3.packed == packed, (
+        f'{tag}: {conv3x3.packed} 3x3 convolution launches on packed tiles, '
+        f'not {packed}')
+    conv3x3_packed.append(packed)
 
 
 def decode_profile(dequant_wire, batch, tag: str) -> int:
@@ -680,6 +689,12 @@ def stack_convs(frames: int, width: int = 64) -> list:
     return out
 
 
+# (Cin, Cout, height, width) of CNN14's blocks 5-6 on a 5 s clip: planes
+# of 31 x 4 and 15 x 2, which the kernel packs 2 and 8 to a tile
+CNN14_PACKED_CONVS = [(512, 1024, 31, 4), (1024, 1024, 31, 4),
+                      (1024, 2048, 15, 2), (2048, 2048, 15, 2)]
+
+
 def conv_bound_ms(batch: int, cin: int, cout: int, h: int, w: int) -> tuple:
     """The least time an H100 SXM could take for one fp32-accurate 3x3
     convolution: the larger of its operations (2 Cin Cout 9 H W an image)
@@ -695,7 +710,8 @@ def conv_bound_ms(batch: int, cin: int, cout: int, h: int, w: int) -> tuple:
 def conv_checks(card: str, dev) -> dict:
     """The 3x3 convolution kernel (``csrc/conv3x3.cu``) at the 8
     convolutions of a 32 x 5 s forward, one layer-4 convolution at batch 1
-    (split K) and the 8 of a forward of 27 windows of 6 s, on post-ReLU
+    (split K), the 8 of a forward of 27 windows of 6 s and CNN14's blocks
+    5-6 at 32 x 5 s (packed tiles, ``CNN14_PACKED_CONVS``), on post-ReLU
     inputs and weights of the checkpoint's scale: its error against
     float64 (on the first two images) within CONV_FP32_FACTOR of cuDNN
     fp32's and CONV_TF32_MARGIN below one TF32 pass's; then timed by
@@ -712,7 +728,8 @@ def conv_checks(card: str, dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(19)
     cases = [('5 s x 32', 32, c) for c in stack_convs(501)] \
         + [('5 s x 1', 1, stack_convs(501)[-1])] \
-        + [('6 s x 27', 27, c) for c in stack_convs(601)]
+        + [('6 s x 27', 27, c) for c in stack_convs(601)] \
+        + [('CNN14 5 s x 32', 32, c) for c in CNN14_PACKED_CONVS]
     total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
     worst = 0.0
 
@@ -1205,6 +1222,11 @@ FAMILY_NAMES = (
     'VGGish_FrameAvg', 'Cnn14_DecisionLevelAtt')
 # the token-pooling Conformers put out logits
 LOGIT_MODELS = ('Cnn_7layers_Conformer', 'Cnn_9layers_Conformer')
+# 3x3 launches on packed tiles in a forward of 32 5 s clips: the
+# six-block stacks' blocks 5-6 (31 x 4 and 15 x 2 planes, 2 and 8 images a
+# tile); every other name's planes take one image a tile
+PACKED_A_FORWARD = {'Cnn_14layers_Conformer_FrameAtt': 4,
+                    'Cnn14_DecisionLevelAtt': 4}
 # Seeded weights leave many (clip, class) tracks with probabilities at a
 # threshold (CNN14's all lie within 0.02 of 0.5), where a float32
 # difference of 1e-6 between the card and the CPU moves an onset or
@@ -1294,7 +1316,8 @@ def families_phase(card: str, dev, cfg, pcm) -> int:
         ev_gpu, xml_gpu = gpu.predict_clips(clips)
         launched = fused_logmel.launches
         assert launched > 0, f'{name} did not launch the log-mel kernel'
-        check_epilogues(f'[14] {name}', gpu.model, launched)
+        check_epilogues(f'[14] {name}', gpu.model, launched,
+                        PACKED_A_FORWARD.get(name, 0) * launched)
         total_launches += launched
         ev_cpu, xml_cpu = cpu.predict_clips(clips)
         events = check_events(name, ev_gpu, ev_cpu)
@@ -1312,6 +1335,7 @@ def families_phase(card: str, dev, cfg, pcm) -> int:
         print(f'[14] {name} ({rate.name}) predict_clips on {card}: 64 '
               f'clips, {gpu._out_frames} frames a clip, {events}, log-mel '
               f'kernel launches {launched} (3x3 {conv3x3_launches[-1]}, '
+              f'{conv3x3_packed[-1]} of them packed, '
               f'epilogue {epilogue_launches[-1]}); max |framewise gpu - cpu| '
               f'= {fw_err!r}, clipwise {cw_err!r}'
               + (' (logits, over max(1, |x|))' if name in LOGIT_MODELS
@@ -3181,6 +3205,7 @@ def main() -> None:
         # sed_tpu leaves the convolutions to XLA
         'replaces': None,
         'launches': sum(conv3x3_launches),
+        'packed_launches': sum(conv3x3_packed),
         # the sums over the 8 convolutions of a 32 x 5 s forward; the
         # library is cuDNN's fp32 F.conv2d under the measured choice
         **convs}]}))

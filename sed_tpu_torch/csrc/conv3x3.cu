@@ -36,20 +36,27 @@
 //
 // Design.
 //
-// * A block owns kBM = 256 consecutive output pixels of one image (rows of
-//   H x W, flattened) and kBN = 64 output channels.  Two consumer
-//   warpgroups take 128 pixels each, as two m64n64k8 wgmma row blocks; a
-//   producer warpgroup (its registers handed to the consumers by
-//   setmaxnreg) feeds them.  K is walked a channel block (kBK = 8 input
-//   channels) at a time, nine taps a block: a tap of a channel block is
-//   one k8 step.  A 1-channel input (the stack's first convolution) takes
-//   the taps as K instead: two k8 steps, taps 0-7 and tap 8 (zero-padded).
+// * A block owns kBM = 256 consecutive output pixels of a group (rows of
+//   H x W, flattened) and kBN = 64 output channels.  A group is one
+//   image, or, where an image has at most 128 pixels, `pack` images laid
+//   one under another with a zero row between two: pack (H + 1) - 1 rows
+//   at the same width (CNN14's 15 x 2 planes pack 8 to a tile, its 31 x 4
+//   planes 2, where one image alone would fill 12% and 48% of it).  Each
+//   image keeps its own zero halo; the producers map each row of the
+//   group to its image and row, the store maps each pixel back and drops
+//   the zero rows.  Two consumer warpgroups take 128 pixels each, as two
+//   m64n64k8 wgmma row blocks; a producer warpgroup (its registers handed
+//   to the consumers by setmaxnreg) feeds them.  K is walked a channel
+//   block (kBK = 8 input channels) at a time, nine taps a block: a tap of
+//   a channel block is one k8 step.  A 1-channel input (the stack's
+//   first convolution) takes the taps as K instead: two k8 steps, taps
+//   0-7 and tap 8 (zero-padded).
 // * Stages.  A ring of shared-memory stages, each holding one channel
 //   block: the weights of all nine taps (hi and lo planes, laid out by the
 //   host in wgmma's no-swizzle K-major core matrices, brought by one TMA
 //   bulk copy) and the tile's input rows with their halo (the rows above
 //   and below, a zero column each side, brought by cp.async, with zeros
-//   for rows outside the image).  Full and empty mbarriers hand stages
+//   for rows outside the images).  Full and empty mbarriers hand stages
 //   between the producers and the consumers.
 // * The activations reach wgmma as its A operand in registers: each
 //   thread reads its fragment's pixels from the halo tile at the tap's
@@ -97,7 +104,7 @@ struct Params {
   const float* w;        // (n tiles, channel blocks, 2, steps, kStepFloats)
   float* out;            // (B, Cout, H, W), or the split partials
   int cin, cout, height, width, hw;
-  int m_tiles;           // tiles of kBM pixels an image
+  int m_tiles;           // tiles of kBM pixels a group
   int n_cblocks;         // channel blocks (1 for a 1-channel input)
   int cb_per_split;
   int rs;                // halo row stride in floats: width + 8
@@ -108,6 +115,11 @@ struct Params {
   int bar_offset;
   bool vec_in, vec_out;
   long long split_floats;  // B Cout H W: one split's partials
+  // packed groups: pack images one under another, vheight = pack (height
+  // + 1) - 1 rows and vhw = vheight width pixels, halo rows copied 8 bytes
+  // at a time where vec2_in
+  int batch, pack, vheight, vhw;
+  bool vec2_in;
 };
 
 __device__ __forceinline__ void mbar_init_count(uint64_t* bar, int count) {
@@ -134,6 +146,15 @@ __device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
                                           int src_bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(
+                   sed::smem_addr(smem)),
+               "l"(gmem), "r"(src_bytes)
+               : "memory");
+}
+
+// 8-byte global -> shared copy; with src_bytes 0 it writes zeros
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;" ::"r"(
                    sed::smem_addr(smem)),
                "l"(gmem), "r"(src_bytes)
                : "memory");
@@ -194,6 +215,19 @@ __device__ __forceinline__ int tap_offset(int tap, int rs) {
   return (tap / 3 - 1) * rs + (tap % 3 - 1);
 }
 
+// Row v of a packed group whose first image is b0: true and its image b
+// and row t, or false for a row of zeros (above or below the group, the
+// zero row between two images, an image past the batch).  Row v is row
+// v % (height + 1) of image b0 + v / (height + 1).
+__device__ __forceinline__ bool packed_row(const Params& p, int b0, int v,
+                                           int& b, int& t) {
+  if (v < 0 || v >= p.vheight) return false;
+  const int i = v / (p.height + 1);
+  b = b0 + i;
+  t = v - i * (p.height + 1);
+  return t < p.height && b < p.batch;
+}
+
 // The producer warpgroup's share of a stage: rows t0 - 1 .. t0 + nrows - 2 of
 // kChans channels from channel ci0 on, zeros outside the image and past
 // cin.  Interior columns start at word 4 of a halo row.
@@ -228,8 +262,50 @@ __device__ __forceinline__ void load_halo(const Params& p, const float* xb,
   }
 }
 
-// kTaps: a 1-channel input, K = the 9 taps (two k8 steps)
-template <bool kTaps>
+// load_halo for a packed group, a row at a time: group rows t0 - 1 .. t0 +
+// nrows - 2, zeros where packed_row gives none.  A packed group is many
+// short rows (2 to 128 floats) over several images; finding each copy's
+// image and row by division, load_halo's way, kept the consumers waiting
+// (CNN14's block 6 ran at half speed).  Here kProducers / kChans threads
+// take a channel's rows in turn, each carrying the image i and row t of
+// its group row v = i (height + 1) + t from one row to the next, and copy
+// a row in pieces of 16, 8 or 4 bytes.
+template <int kChans>
+__device__ __forceinline__ void load_halo_packed(const Params& p, int b0,
+                                                 float* hb, int ci0, int t0,
+                                                 int nrows, int pt) {
+  constexpr int kPer = kProducers / kChans;
+  const int c = pt / kPer, ci = ci0 + c;
+  int r = pt - c * kPer, v = t0 - 1 + r;
+  int i = v > 0 ? v / (p.height + 1) : 0, t = v - i * (p.height + 1);
+  for (; r < nrows; r += kPer, v += kPer, t += kPer) {
+    while (t > p.height) {
+      t -= p.height + 1;
+      ++i;
+    }
+    const bool ok = ci < p.cin && v >= 0 && v < p.vheight &&
+                    t < p.height && b0 + i < p.batch;
+    const float* src =
+        ok ? p.x + ((long long)(b0 + i) * p.cin + ci) * p.hw +
+                 (long long)t * p.width
+           : p.x;
+    float* dst = hb + c * p.ps + r * p.rs + 4;
+    if (p.vec_in) {
+      for (int q = 0; q < p.width; q += 4)
+        sed::cp_async16(dst + q, ok ? src + q : p.x, ok ? 16 : 0);
+    } else if (p.vec2_in) {
+      for (int q = 0; q < p.width; q += 2)
+        cp_async8(dst + q, ok ? src + q : p.x, ok ? 8 : 0);
+    } else {
+      for (int q = 0; q < p.width; ++q)
+        cp_async4(dst + q, ok ? src + q : p.x, ok ? 4 : 0);
+    }
+  }
+}
+
+// kTaps: a 1-channel input, K = the 9 taps (two k8 steps).  kPacked: a
+// group holds p.pack > 1 images
+template <bool kTaps, bool kPacked>
 __global__ void __launch_bounds__(kThreads, 1)
     conv3x3_kernel(const __grid_constant__ Params p) {
   constexpr int kSteps = kTaps ? 2 : 9;
@@ -238,13 +314,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   extern __shared__ __align__(1024) unsigned char smem[];
 
   const int tid = threadIdx.x;
-  const int b = blockIdx.x / p.m_tiles;
-  const int m0 = (blockIdx.x - b * p.m_tiles) * kBM;
+  const int group = blockIdx.x / p.m_tiles;
+  const int b0 = kPacked ? group * p.pack : group;   // its first image
+  const int m0 = (blockIdx.x - group * p.m_tiles) * kBM;
   const int n0 = blockIdx.y * kBN;
   const int cb0 = blockIdx.z * p.cb_per_split;
   const int iters = min(p.n_cblocks - cb0, p.cb_per_split);
+  const int mpix = kPacked ? p.vhw : p.hw;   // pixels of a group
   const int t0 = m0 / p.width;
-  const int nrows = (min(m0 + kBM, p.hw) - 1) / p.width - t0 + 3;
+  const int nrows = (min(m0 + kBM, mpix) - 1) / p.width - t0 + 3;
 
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + p.bar_offset);
   uint64_t* empty = full + kMaxStages;
@@ -272,7 +350,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     // ---------------- producer warpgroup ----------------
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
     const int pt = tid - kConsumers;
-    const float* xb = p.x + (long long)b * p.cin * p.hw;
+    const float* xb = p.x + (long long)b0 * p.cin * p.hw;
     const float* wsrc =
         p.w + ((long long)blockIdx.y * p.n_cblocks + cb0) * (kWBytes / 4);
     for (int it = 0; it < iters; ++it) {
@@ -283,8 +361,12 @@ __global__ void __launch_bounds__(kThreads, 1)
         sed::bulk_copy(wstage(s), wsrc + (long long)it * (kWBytes / 4),
                        kWBytes, &full[s]);
       }
-      load_halo<kChans>(p, xb, hstage(s), (cb0 + it) * kChans, t0, nrows,
-                        pt);
+      if constexpr (kPacked)
+        load_halo_packed<kChans>(p, b0, hstage(s), (cb0 + it) * kChans, t0,
+                                 nrows, pt);
+      else
+        load_halo<kChans>(p, xb, hstage(s), (cb0 + it) * kChans, t0, nrows,
+                          pt);
       cp_async_mbar_arrive(&full[s]);
     }
     asm volatile("cp.async.wait_all;" ::: "memory");
@@ -294,14 +376,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int wg = tid >> 7, wq = (tid >> 5) & 3, lane = tid & 31;
     const int g = lane >> 2, tq = lane & 3;
     // halo offsets of this thread's four pixels (rows of its fragments);
-    // pixels past the image read the last one and are not stored
+    // pixels past the group read the last one and are not stored
     int roff[2][2];
 #pragma unroll
     for (int j = 0; j < 2; ++j)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int m = min(m0 + wg * 128 + j * 64 + wq * 16 + g + 8 * h,
-                          p.hw - 1);
+                          mpix - 1);
         const int t = m / p.width;
         roff[j][h] = (t - t0 + 1) * p.rs + (m - t * p.width) + 4;
       }
@@ -392,22 +474,41 @@ __global__ void __launch_bounds__(kThreads, 1)
         st[n * kLD + px] = sum[j][i];
       }
     asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");
-    float* dst = p.out + blockIdx.z * p.split_floats +
-                 ((long long)b * p.cout + n0) * p.hw + m0;
-    const int mcount = min(kBM, p.hw - m0);
+    float* out = p.out + blockIdx.z * p.split_floats;
+    const int mcount = min(kBM, mpix - m0);
     const int ncount = min(kBN, p.cout - n0);
-    if (p.vec_out) {
-      for (int i = tid; i < kBN * (kBM / 4); i += kConsumers) {
-        const int n = i / (kBM / 4), q = 4 * (i - n * (kBM / 4));
-        if (n < ncount && q < mcount)
-          *reinterpret_cast<float4*>(dst + (long long)n * p.hw + q) =
+    if constexpr (kPacked) {
+      // each pixel back to its image and row; the zero rows are dropped
+      const int vec = p.vec_out ? 4 : 1;
+      for (int i = tid; i < kBN * kBM / vec; i += kConsumers) {
+        const int n = i / (kBM / vec), q = vec * (i - n * (kBM / vec));
+        const int v = (m0 + q) / p.width;
+        int b = 0, t = 0;
+        if (n >= ncount || q >= mcount || !packed_row(p, b0, v, b, t))
+          continue;
+        float* d = out + ((long long)b * p.cout + n0 + n) * p.hw +
+                   (long long)t * p.width + (m0 + q - v * p.width);
+        if (vec == 4)
+          *reinterpret_cast<float4*>(d) =
               *reinterpret_cast<const float4*>(st + n * kLD + q);
+        else
+          *d = st[n * kLD + q];
       }
     } else {
-      for (int i = tid; i < kBN * kBM; i += kConsumers) {
-        const int n = i / kBM, q = i - n * kBM;
-        if (n < ncount && q < mcount) dst[(long long)n * p.hw + q] =
-            st[n * kLD + q];
+      float* dst = out + ((long long)b0 * p.cout + n0) * p.hw + m0;
+      if (p.vec_out) {
+        for (int i = tid; i < kBN * (kBM / 4); i += kConsumers) {
+          const int n = i / (kBM / 4), q = 4 * (i - n * (kBM / 4));
+          if (n < ncount && q < mcount)
+            *reinterpret_cast<float4*>(dst + (long long)n * p.hw + q) =
+                *reinterpret_cast<const float4*>(st + n * kLD + q);
+        }
+      } else {
+        for (int i = tid; i < kBN * kBM; i += kConsumers) {
+          const int n = i / kBM, q = i - n * kBM;
+          if (n < ncount && q < mcount) dst[(long long)n * p.hw + q] =
+              st[n * kLD + q];
+        }
       }
     }
   }
@@ -444,6 +545,10 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
+bool aligned8(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 7) == 0;
+}
+
 int round_up(int v, int to) { return (v + to - 1) / to * to; }
 
 // A block's shared memory for this input (ops/conv3x3.py stages() repeats
@@ -469,6 +574,17 @@ Layout layout(int cin, int width) {
   return l;
 }
 
+template <bool kTaps, bool kPacked>
+cudaError_t launch_conv(const dim3& grid, int smem, cudaStream_t s,
+                        const Params& p) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      conv3x3_kernel<kTaps, kPacked>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  conv3x3_kernel<kTaps, kPacked><<<grid, kThreads, smem, s>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -476,32 +592,42 @@ extern "C" {
 // Launch on `stream`.  x (batch, cin, height, width) float32 contiguous;
 // w the weight planes of ops/conv3x3.py weight_planes; out (batch, cout,
 // height, width); work (splits, batch, cout, height, width) floats when
-// splits > 1, else unused.  splits divides the channel blocks
-// (ceil(cin / 8), 1 for cin 1) into runs of ceil(blocks / splits), none
-// empty.  Returns a cudaError_t as int (0 = launched).
+// splits > 1, else unused.  pack images go to a group, one under another
+// with a zero row between two (ops/conv3x3.py images_a_tile; 1 = a group
+// an image).  splits divides the channel blocks (ceil(cin / 8), 1 for cin
+// 1) into runs of ceil(blocks / splits), none empty.  Returns a
+// cudaError_t as int (0 = launched).
 int sed_conv3x3(const float* x, const float* w, float* out, float* work,
                 int batch, int cin, int cout, int height, int width,
-                int splits, void* stream) {
+                int pack, int splits, void* stream) {
   const long long hw = (long long)height * width;
+  const long long vheight =
+      pack > 1 ? (long long)pack * (height + 1) - 1 : height;
   if (batch <= 0 || cin <= 0 || cout <= 0 || height <= 0 || width <= 0 ||
-      hw >= 0x7fffffffLL || splits < 1 || (splits > 1 && work == nullptr))
+      pack <= 0 || vheight * width >= 0x7fffffffLL || splits < 1 ||
+      (splits > 1 && work == nullptr))
     return (int)cudaErrorInvalidValue;
   const Layout l = layout(cin, width);
   const bool taps = cin == 1;
   Params p{};
   p.x = x;
   p.w = w;
+  p.batch = batch;
   p.cin = cin;
   p.cout = cout;
   p.height = height;
   p.width = width;
   p.hw = (int)hw;
-  p.m_tiles = (int)((hw + kBM - 1) / kBM);
+  p.pack = pack;
+  p.vheight = (int)vheight;
+  p.vhw = (int)(vheight * width);
+  p.m_tiles = (p.vhw + kBM - 1) / kBM;
   p.n_cblocks = taps ? 1 : (cin + kBK - 1) / kBK;
   p.cb_per_split = (p.n_cblocks + splits - 1) / splits;
+  const long long groups = (batch + pack - 1) / pack;
   if (l.stages == 0 ||
       (long long)(splits - 1) * p.cb_per_split >= p.n_cblocks ||
-      (long long)batch * p.m_tiles > 0x7fffffffLL)
+      groups * p.m_tiles > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   p.rs = l.rs;
   p.ps = l.ps;
@@ -516,26 +642,19 @@ int sed_conv3x3(const float* x, const float* w, float* out, float* work,
   p.split_floats = (long long)batch * cout * hw;
   p.out = splits > 1 ? work : out;
   p.vec_in = width % 4 == 0 && aligned16(x);
-  p.vec_out = hw % 4 == 0 && aligned16(p.out);
+  p.vec2_in = pack > 1 && width % 2 == 0 && aligned8(x);
+  // a float4 of the tile must land on 4 pixels of one image's row
+  p.vec_out = (pack > 1 ? width : hw) % 4 == 0 && aligned16(p.out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((unsigned)(batch * p.m_tiles), (unsigned)((cout + kBN - 1) /
-                                                            kBN),
-                  (unsigned)splits);
+  const dim3 grid((unsigned)(groups * p.m_tiles),
+                  (unsigned)((cout + kBN - 1) / kBN), (unsigned)splits);
   cudaError_t err;
-  if (taps) {
-    err = cudaFuncSetAttribute(conv3x3_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return (int)err;
-    conv3x3_kernel<true><<<grid, kThreads, smem, s>>>(p);
-  } else {
-    err = cudaFuncSetAttribute(conv3x3_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return (int)err;
-    conv3x3_kernel<false><<<grid, kThreads, smem, s>>>(p);
-  }
-  err = cudaGetLastError();
+  if (pack > 1)
+    err = taps ? launch_conv<true, true>(grid, smem, s, p)
+               : launch_conv<false, true>(grid, smem, s, p);
+  else
+    err = taps ? launch_conv<true, false>(grid, smem, s, p)
+               : launch_conv<false, false>(grid, smem, s, p);
   if (err != cudaSuccess || splits == 1) return (int)err;
   const long long n = p.split_floats;
   const bool vec = n % 4 == 0 && aligned16(work) && aligned16(out);

@@ -32,9 +32,9 @@ from sed_tpu_torch.utils.profiling import span
 # input channels a stage, floats of one k8 step of one weight plane
 BM, BN, BK = 256, 64, 8
 _SMEM_LIMIT, _MAX_STAGES = 232448, 4
-# x, weight planes, out, work, batch, cin, cout, height, width, splits,
-# stream
-_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
+# x, weight planes, out, work, batch, cin, cout, height, width, pack,
+# splits, stream
+_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 7 + (ctypes.c_void_p,)
 
 
 def conv3x3_plain(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
@@ -98,24 +98,46 @@ def weight_planes(weight: torch.Tensor) -> torch.Tensor:
         tiles, blocks, 2, steps, BN * 8)
 
 
+def images_a_tile(batch: int, height: int, width: int) -> int:
+    """How many images the kernel lays into one group of its BM-pixel
+    tiles, one under another with a zero row between two: 1 for a plane
+    of over BM / 2 pixels, else floor(BM / ((H + 1) W)) (an image's rows
+    and one zero row), at most the batch.  CNN14's 15 x 2 planes take 8,
+    its 31 x 4 planes 2; the 4-block stack's planes (62 x 8 and up) 1."""
+    if height * width > BM // 2:
+        return 1
+    return max(1, min(batch, BM // ((height + 1) * width)))
+
+
+def m_tiles(batch: int, height: int, width: int) -> int:
+    """The kernel's tiles of BM output pixels over the batch: ceil(B / g)
+    groups of g = ``images_a_tile`` images, each ceil(rows W / BM)
+    tiles, where a group has H rows, or g (H + 1) - 1 packed."""
+    g = images_a_tile(batch, height, width)
+    rows = height if g == 1 else g * (height + 1) - 1
+    return -(-batch // g) * -(-(rows * width) // BM)
+
+
 def products(batch: int, cin: int, cout: int, height: int,
              width: int) -> tuple:
     """(the convolution's operations, those the launched tiles span) of
-    one launch, products as 2: 2 B H W Cout 9 Cin, and 2 B ceil(HW / BM)
-    BM ceil(Cout / BN) BN K, where K is the 16 taps of a 1-channel input
-    or 72 ceil(Cin / 8): a tile's rows never span two images, its
-    columns and its K run to whole blocks."""
+    one launch, products as 2: 2 B H W Cout 9 Cin, and 2 ``m_tiles`` BM
+    ceil(Cout / BN) BN K, where K is the 16 taps of a 1-channel input or
+    72 ceil(Cin / 8): a tile holds one image's pixels, or the packed
+    images of a small plane with their zero rows (``images_a_tile``), and
+    its columns and its K run to whole blocks."""
     k = 16 if cin == 1 else 72 * -(-cin // BK)
     return (2 * batch * height * width * cout * 9 * cin,
-            2 * batch * -(-(height * width) // BM) * BM * -(-cout // BN)
-            * BN * k)
+            2 * m_tiles(batch, height, width) * BM * -(-cout // BN) * BN * k)
 
 
-def splits(batch: int, cin: int, cout: int, hw: int, sms: int) -> int:
+def splits(batch: int, cin: int, cout: int, height: int, width: int,
+           sms: int) -> int:
     """How many runs of channel blocks the kernel splits K into: 1 where
-    the output tiles fill the ``sms`` SMs, else enough runs (none empty)
-    to bring the blocks to about one each."""
-    tiles = batch * -(-hw // BM) * -(-cout // BN)
+    the output tiles (``m_tiles`` of them a column of BN channels, packed
+    groups counted once) fill the ``sms`` SMs, else enough runs (none
+    empty) to bring the blocks to about one each."""
+    tiles = m_tiles(batch, height, width) * -(-cout // BN)
     blocks, _ = _steps(cin)
     if tiles >= sms or blocks == 1:
         return 1
@@ -140,7 +162,9 @@ def conv3x3(x: torch.Tensor, weight: torch.Tensor,
     has no backward, and a ctypes call is invisible to autograd, so a
     CUDA input that would want a gradient raises instead of coming back
     silently detached.  ``conv3x3.launches`` counts kernel launches,
-    ``conv3x3.flop`` and ``conv3x3.tile_flop`` their ``products``."""
+    ``conv3x3.packed`` those whose tiles hold several images
+    (``images_a_tile`` over 1), ``conv3x3.flop`` and
+    ``conv3x3.tile_flop`` their ``products``."""
     if x.device.type == 'cpu':
         return conv3x3_plain(x, weight)
     with span('conv.3x3'):
@@ -182,20 +206,23 @@ def _launch(x, weight, planes) -> torch.Tensor:
     out = torch.empty((b, cout, h, w), dtype=torch.float32, device=x.device)
     if not out.numel():
         return out
-    n = splits(b, cin, cout, h * w, _sms(x.device.index))
+    pack = images_a_tile(b, h, w)
+    n = splits(b, cin, cout, h, w, _sms(x.device.index))
     work = torch.empty(n * out.numel(), dtype=torch.float32,
                        device=x.device) if n > 1 else None
     _build.launch('conv3x3', _ARGTYPES, x.device, x.data_ptr(),
                   planes.data_ptr(), out.data_ptr(),
                   None if work is None else work.data_ptr(), b, cin, cout,
-                  h, w, n)
+                  h, w, pack, n)
     flop, tile_flop = products(b, cin, cout, h, w)
     conv3x3.launches += 1
+    conv3x3.packed += pack > 1
     conv3x3.flop += flop
     conv3x3.tile_flop += tile_flop
     return out
 
 
 conv3x3.launches = 0
+conv3x3.packed = 0
 conv3x3.flop = 0
 conv3x3.tile_flop = 0

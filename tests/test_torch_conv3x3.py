@@ -101,17 +101,60 @@ def test_plain_is_fp32_accurate_and_one_tf32_pass_is_not(cin, cout, relu):
     assert torch.equal(cv.conv3x3(x, w), cv.conv3x3_plain(x, w))  # CPU
 
 
-def _emulate_kernel(x: torch.Tensor, w: torch.Tensor, splits: int):
+def _packed_halo(xs, halo, b0, cb, chans, t0, nrows, rs, ps, vheight):
+    """``load_halo_packed`` of ``csrc/conv3x3.cu``: each producer thread's
+    walk over its channel's rows, the image and row carried from one row
+    to the next; every row of every channel written once, zeros where the
+    row is above or below the group, a zero row between two images or an
+    image past the batch."""
+    b_, cin, h, wd = xs.shape
+    per = 128 // chans
+    written = np.zeros((chans, nrows), dtype=int)
+    for pt in range(128):
+        c, r = divmod(pt, per)
+        ci = cb * chans + c
+        v = t0 - 1 + r
+        i = v // (h + 1) if v > 0 else 0
+        t = v - i * (h + 1)
+        while r < nrows:
+            while t > h:
+                t -= h + 1
+                i += 1
+            ok = ci < cin and 0 <= v < vheight and t < h and b0 + i < b_
+            o = c * ps + r * rs + 4
+            halo[o:o + wd] = xs[b0 + i, ci, t] if ok else 0.0
+            written[c, r] += 1
+            r, v, t = r + per, v + per, t + per
+    assert (written == 1).all()
+
+
+def _packed_row(v, b0, h, b_, vheight):
+    """``packed_row``: (image, row) of row v of a packed group, or None
+    for a row of zeros."""
+    if v < 0 or v >= vheight:
+        return None
+    i, t = divmod(v, h + 1)
+    return (b0 + i, t) if t < h and b0 + i < b_ else None
+
+
+def _emulate_kernel(x: torch.Tensor, w: torch.Tensor, splits: int,
+                    pack: int = 1):
     """``csrc/conv3x3.cu``'s indexing in numpy, float64 sums: per block
-    (image, 256-pixel tile, 64-channel tile, split), the producer's halo
-    tile of each stage (rows t0 - 1.., interior from word 4, zeros outside
-    the image and past Cin), each thread's A fragment (rows g and g + 8 of
-    its warp's 16, columns tq and tq + 4) read at the tap's shift, and B
-    read from the weight planes through the no-swizzle K-major
-    descriptor (8-row core matrices of 16 bytes a row, leading byte offset
-    128, stride byte offset 256); the splits' partials added in order."""
+    (group of ``pack`` images, 256-pixel tile, 64-channel tile, split),
+    the producers' halo tile of each stage (group rows t0 - 1.., interior
+    from word 4, zeros outside the images, on the zero rows between
+    packed images, past the batch and past Cin; a packed group loaded by
+    ``_packed_halo``), each thread's A fragment (rows g and g + 8 of its
+    warp's 16, columns tq and tq + 4) read at the tap's shift, B read
+    from the weight planes through the no-swizzle K-major descriptor
+    (8-row core matrices of 16 bytes a row, leading byte offset 128,
+    stride byte offset 256), and the store of each pixel back to its
+    image and row, the zero rows dropped; the splits' partials added in
+    order."""
     b_, cin, h, wd = x.shape
     cout, hw = w.shape[0], h * wd
+    vheight = h if pack == 1 else pack * (h + 1) - 1
+    vhw = vheight * wd
     blocks_, steps = cv._steps(cin)
     chans = 1 if cin == 1 else cv.BK
     per = -(-blocks_ // splits)
@@ -130,31 +173,36 @@ def _emulate_kernel(x: torch.Tensor, w: torch.Tensor, splits: int):
     kk = np.arange(8)
     bidx = (n[None] // 8) * 64 + (kk[:, None] // 4) * 32 \
         + (n[None] % 8) * 4 + kk[:, None] % 4                # (k, n)
-    out = np.zeros((splits, b_, cout, hw))
-    for b in range(b_):
-        for m0 in range(0, hw, cv.BM):
+    out = np.full((splits, b_, cout, hw), np.nan)
+    stored = np.zeros((splits, b_, cout, hw), dtype=int)
+    for b0 in range(0, b_, pack):
+        for m0 in range(0, vhw, cv.BM):
             t0 = m0 // wd
-            nrows = (min(m0 + cv.BM, hw) - 1) // wd - t0 + 3
+            nrows = (min(m0 + cv.BM, vhw) - 1) // wd - t0 + 3
             assert nrows <= rows
             for nt in range(-(-cout // cv.BN)):
                 for z in range(splits):
                     acc = np.zeros((cv.BM, cv.BN))
                     for cb in range(z * per, min(blocks_, (z + 1) * per)):
                         halo = np.zeros(chans * ps)
-                        for c in range(chans):
-                            ci = cb * chans + c
-                            for r in range(nrows):
-                                t = t0 - 1 + r
-                                if ci < cin and 0 <= t < h:
-                                    o = c * ps + r * rs + 4
-                                    halo[o:o + wd] = xs[b, ci, t]
+                        if pack > 1:
+                            _packed_halo(xs, halo, b0, cb, chans, t0, nrows,
+                                         rs, ps, vheight)
+                        else:
+                            for c in range(chans):
+                                ci = cb * chans + c
+                                for r in range(nrows):
+                                    t = t0 - 1 + r
+                                    if ci < cin and 0 <= t < h:
+                                        o = c * ps + r * rs + 4
+                                        halo[o:o + wd] = xs[b0, ci, t]
                         for k in range(steps):
                             a = np.zeros((cv.BM, 8))
                             for j in range(2):
                                 for hh in range(2):
                                     px = wg * 128 + j * 64 + wq * 16 + g \
                                         + 8 * hh
-                                    m = np.minimum(m0 + px, hw - 1)
+                                    m = np.minimum(m0 + px, vhw - 1)
                                     t = m // wd
                                     roff = (t - t0 + 1) * rs + m - t * wd + 4
                                     for cc in range(2):
@@ -172,30 +220,71 @@ def _emulate_kernel(x: torch.Tensor, w: torch.Tensor, splits: int):
                             bsum = (planes[nt, cb, 0, k][bidx]
                                     + planes[nt, cb, 1, k][bidx])
                             acc += a @ bsum
-                    mc = min(cv.BM, hw - m0)
                     nc = min(cv.BN, cout - nt * cv.BN)
-                    out[z, b, nt * cv.BN:nt * cv.BN + nc, m0:m0 + mc] = \
-                        acc[:mc, :nc].T
+                    for q in range(min(cv.BM, vhw - m0)):
+                        v = (m0 + q) // wd
+                        dst = (b0, v) if pack == 1 else _packed_row(
+                            v, b0, h, b_, vheight)
+                        if dst is not None:
+                            o = dst[1] * wd + m0 + q - v * wd
+                            out[z, dst[0], nt * cv.BN:nt * cv.BN + nc, o] = \
+                                acc[q, :nc]
+                            stored[z, dst[0], nt * cv.BN:nt * cv.BN + nc,
+                                   o] += 1
+    # every output written once by each split
+    assert (stored == 1).all()
     return out.sum(0).reshape(b_, cout, h, wd)
 
 
-@pytest.mark.parametrize('batch,cin,cout,h,w,splits', [
-    (2, 1, 64, 9, 8, 1),        # the taps as K
-    (1, 3, 70, 5, 7, 1),        # Cin and Cout padded, a width of 7
-    (1, 20, 64, 6, 8, 3),       # split K, the last run short
-    (1, 16, 8, 40, 16, 2),      # three pixel tiles, the last ragged
-    (1, 9, 64, 300, 1, 1),      # a width of 1: 258 halo rows
+@pytest.mark.parametrize('batch,cin,cout,h,w,splits,pack', [
+    (2, 1, 64, 9, 8, 1, 1),        # the taps as K
+    (1, 3, 70, 5, 7, 1, 1),        # Cin and Cout padded, a width of 7
+    (1, 20, 64, 6, 8, 3, 1),       # split K, the last run short
+    (1, 16, 8, 40, 16, 2, 1),      # three pixel tiles, the last ragged
+    (1, 9, 64, 300, 1, 1, 1),      # a width of 1: 258 halo rows
+    (8, 9, 64, 15, 2, 1, 8),       # CNN14's block 6 planes, 8 a tile
+    (5, 9, 70, 31, 4, 1, 2),       # block 5's, the last group one image
+    (3, 4, 8, 6, 5, 1, 3),         # the rule's 7 capped at the batch
+    (3, 4, 8, 6, 5, 1, 7),         # a group longer than the batch
+    (6, 2, 8, 30, 1, 1, 4),        # a width of 1, packed
+    (5, 20, 64, 15, 2, 3, 8),      # split K on a packed tile
+    (4, 1, 64, 7, 4, 1, 4),        # the taps as K, packed
+    (3, 8, 64, 10, 12, 1, 2),      # two tiles a group
 ])
-def test_kernel_indexing_emulated(batch, cin, cout, h, w, splits):
+def test_kernel_indexing_emulated(batch, cin, cout, h, w, splits, pack):
     """The kernel's indexing gives F.conv2d of x and the weights' hi + lo
-    in float64 (to float64 rounding)."""
+    in float64 (to float64 rounding), one image a group or packed."""
     gen = torch.Generator().manual_seed(cin + cout + h)
     x = torch.randn(batch, cin, h, w, generator=gen)
     wt = torch.randn(cout, cin, 3, 3, generator=gen)
     hi, lo = cv.split_tf32(wt)
     want = F.conv2d(x.double(), hi.double() + lo.double(), padding=1)
-    got = _emulate_kernel(x, wt, splits)
+    got = _emulate_kernel(x, wt, splits, pack)
     assert np.abs(got - want.numpy()).max() <= 1e-12 * want.abs().max()
+
+
+def test_images_a_tile_packs_only_small_planes():
+    """CNN14's blocks 5-6 pack 2 and 8 images a tile at batch 32 (and
+    fewer at a smaller batch); every plane of the 4-block stack, at 5 s
+    and at the 6 s windows, and CNN14's blocks 1-4 take one."""
+    assert cv.images_a_tile(32, 31, 4) == 2
+    assert cv.images_a_tile(32, 15, 2) == 8
+    assert cv.images_a_tile(5, 15, 2) == 5
+    assert cv.images_a_tile(1, 15, 2) == 1
+    assert cv.images_a_tile(3, 6, 5) == 3      # 256 // 35 = 7
+    assert cv.images_a_tile(32, 4, 16) == 3    # 256 // 80
+    assert cv.images_a_tile(32, 8, 16) == 1    # 256 // 144
+    assert cv.images_a_tile(32, 1, 64) == 2
+    assert cv.images_a_tile(32, 1, 128) == 1
+    for frames in (501, 601):                  # 5 s clips, 6 s windows
+        t, f = frames, 64
+        for _ in range(4):
+            for batch in (1, 5, 9, 27, 32):
+                assert cv.images_a_tile(batch, t, f) == 1, (t, f, batch)
+                assert cv.m_tiles(batch, t, f) == batch * -(-t * f // 256)
+            t, f = t // 2, f // 2
+    assert cv.m_tiles(32, 15, 2) == 4 and cv.m_tiles(32, 31, 4) == 16
+    assert cv.m_tiles(5, 31, 4) == 3 and cv.m_tiles(3, 10, 12) == 3
 
 
 @pytest.mark.parametrize('cin,cout', [(1, 64), (3, 70), (64, 128)])
@@ -229,21 +318,34 @@ def test_weight_planes_hold_the_split_weights(cin, cout):
 
 def test_splits_fill_the_card_and_leave_no_run_empty():
     # the stack at batch 32: enough tiles
-    assert cv.splits(32, 512, 512, 62 * 8, 132) == 1
-    assert cv.splits(32, 1, 64, 501 * 64, 132) == 1
+    assert cv.splits(32, 512, 512, 62, 8, 132) == 1
+    assert cv.splits(32, 1, 64, 501, 64, 132) == 1
     # batch 1: block 4 has 2 x 8 tiles, 64 channel blocks
-    assert cv.splits(1, 512, 512, 62 * 8, 132) == 8
-    assert cv.splits(1, 256, 512, 62 * 8, 132) == 8
+    assert cv.splits(1, 512, 512, 62, 8, 132) == 8
+    assert cv.splits(1, 256, 512, 62, 8, 132) == 8
+    # CNN14 at batch 32, the packed tiles: block 5 has 16 groups of 2
+    # images x 16 channel tiles, block 6 4 groups of 8 x 32, under the 132
+    # SMs; one image a tile, they would have 32 x 32 and need no split
+    assert cv.splits(32, 512, 1024, 31, 4, 132) == 1
+    assert cv.splits(32, 1024, 1024, 31, 4, 132) == 1
+    assert cv.splits(32, 1024, 2048, 15, 2, 132) == 2
+    assert cv.splits(32, 2048, 2048, 15, 2, 132) == 2
+    # batch 5: one group of 5 at block 6, 32 tiles
+    assert cv.splits(5, 2048, 2048, 15, 2, 132) == 5
     # one channel block: nothing to split
-    assert cv.splits(1, 1, 64, 8, 132) == 1
-    assert cv.splits(1, 8, 64, 8, 132) == 1
-    for batch in (1, 2, 3, 5):
+    assert cv.splits(1, 1, 64, 1, 8, 132) == 1
+    assert cv.splits(1, 8, 64, 1, 8, 132) == 1
+    for batch in (1, 2, 3, 5, 32):
         for cin in (9, 16, 64, 128, 200, 512):
-            for hw in (8, 496, 2000, 8000):
-                n = cv.splits(batch, cin, 256, hw, 132)
+            for h, w in ((1, 8), (62, 8), (125, 16), (250, 32), (15, 2),
+                         (31, 4)):
+                n = cv.splits(batch, cin, 256, h, w, 132)
                 blocks_ = -(-cin // cv.BK)
                 per = -(-blocks_ // n)
                 assert 1 <= n <= blocks_ and (n - 1) * per < blocks_
+                if cv.images_a_tile(batch, h, w) == 1:     # as before packing
+                    tiles = batch * -(-h * w // cv.BM) * 4
+                    assert (n == 1) == (tiles >= 132 or blocks_ == 1)
 
 
 def test_stages_fit_shared_memory():

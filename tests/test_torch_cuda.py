@@ -1124,7 +1124,7 @@ def test_cuda_conv3x3_split_k_is_deterministic(device, batch):
     """At batches whose block-4 tiles are fewer than the SMs the kernel
     splits K; two runs give the same bits."""
     from sed_tpu_torch.ops import conv3x3 as cv
-    assert cv.splits(batch, 512, 512, 62 * 8, 132) > 1
+    assert cv.splits(batch, 512, 512, 62, 8, 132) > 1
     gen = torch.Generator(device=device).manual_seed(batch)
     x = torch.randn(batch, 512, 62, 8, device=device, generator=gen).relu()
     w = torch.randn(512, 512, 3, 3, device=device, generator=gen) * 0.02
@@ -1134,16 +1134,69 @@ def test_cuda_conv3x3_split_k_is_deterministic(device, batch):
     assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
+# CNN14's blocks 5-6 at 5 s: (Cin, Cout, H, W) of planes the kernel packs
+CNN14_PACKED_CONVS = [(512, 1024, 31, 4), (1024, 1024, 31, 4),
+                      (1024, 2048, 15, 2), (2048, 2048, 15, 2)]
+# the kernel's error against float64, max |y - y64| over max |y64|
+CONV_FP64_BOUND = 1e-6
+
+
+@pytest.mark.parametrize('batch', [32, 5])
+@pytest.mark.parametrize('cin,cout,h,w', CNN14_PACKED_CONVS)
+def test_cuda_conv3x3_packed_tiles(device, monkeypatch, batch, cin, cout,
+                                   h, w):
+    """CNN14's block 5-6 convolutions on packed tiles (at batch 32 two
+    31 x 4 or eight 15 x 2 images a tile; at batch 5 the five in one, K
+    split): within CONV_FP64_BOUND of float64 on the first and last
+    image of the first and last groups; over the whole batch within twice
+    the two errors' sum of the plain version (three cuDNN passes, itself
+    2-3.5e-6 from float64 at these shapes); and the same bits as the
+    kernel with one image a tile at the same split."""
+    from sed_tpu_torch.ops import conv3x3 as cv
+    pack = cv.images_a_tile(batch, h, w)
+    assert pack > 1
+    gen = torch.Generator(device=device).manual_seed(cin + h + batch)
+    x = torch.randn(batch, cin, h, w, device=device, generator=gen).relu()
+    wt = torch.randn(cout, cin, 3, 3, device=device, generator=gen) \
+        / (3 * cin ** 0.5)
+    planes = cv.weight_planes(wt)
+    packed = cv.conv3x3.packed
+    got = cv.conv3x3(x, wt, planes)
+    assert cv.conv3x3.packed == packed + 1
+    last = (batch - 1) // pack * pack
+    rows = sorted({0, pack - 1, last, batch - 1})
+    ref = F.conv2d(x[rows].double(), wt.double(), padding=1)
+    err = ((got[rows].double() - ref).abs().max() / ref.abs().max()).item()
+    plain = cv.conv3x3_plain(x, wt)
+    plain_err = ((plain[rows].double() - ref).abs().max()
+                 / ref.abs().max()).item()
+    gap = ((got - plain).abs().max() / plain.abs().max()).item()
+    print(f'{batch} x {cin} -> {cout} at {h} x {w}, {pack} a tile: '
+          f'{err:.3e} from float64 (plain {plain_err:.3e}), {gap:.3e} from '
+          f'the plain version')
+    assert err <= CONV_FP64_BOUND, err
+    assert gap <= 2 * (err + plain_err), (gap, err, plain_err)
+    n = cv.splits(batch, cin, cout, h, w, torch.cuda.get_device_properties(
+        device).multi_processor_count)
+    monkeypatch.setattr(cv, 'images_a_tile', lambda *a: 1)
+    monkeypatch.setattr(cv, 'splits', lambda *a: n)
+    one = cv.conv3x3(x, wt, planes)
+    assert cv.conv3x3.packed == packed + 1
+    assert torch.equal(got.view(torch.int32), one.view(torch.int32))
+
+
 def test_cuda_conv3x3_launches_eight_a_forward(device):
     """A float32 eval forward of the bench GRU takes the kernel for its
-    8 convolutions and none to cuDNN's measured choice; a forward with
-    autograd on takes it for none."""
+    8 convolutions, none on packed tiles, and none to cuDNN's measured
+    choice; a forward with autograd on takes it for none."""
     from sed_tpu_torch.models import blocks
     from sed_tpu_torch.ops import conv3x3 as cv
     launches, calls = cv.conv3x3.launches, blocks.Conv2d.measured_calls
+    packed = cv.conv3x3.packed
     _bench_forward(device, clips=4)
     assert (cv.conv3x3.launches - launches,
             blocks.Conv2d.measured_calls - calls) == (8, 0)
+    assert cv.conv3x3.packed == packed
     _bench_forward(device, clips=4, grad=True)
     assert (cv.conv3x3.launches - launches,
             blocks.Conv2d.measured_calls - calls) == (8, 8)

@@ -214,12 +214,12 @@ def test_counted_operations_and_bytes(cell):
         4 * (2048 * 2048 + 2048 + 3 * 15 * 4096)
 
 
-def _tile_use(channels, frames=501, mels=64):
+def _tile_use(channels, frames=501, mels=64, batch=32):
     flop = tiles = 0
     cin = 1
     for i, c in enumerate(channels):
         for a, b in ((cin, c), (c, c)):
-            f, t = cv.products(32, a, b, frames, mels)
+            f, t = cv.products(batch, a, b, frames, mels)
             flop, tiles = flop + f, tiles + t
         cin = c
         if i < len(channels) - 1:
@@ -229,17 +229,26 @@ def _tile_use(channels, frames=501, mels=64):
 
 def test_tile_products_of_the_two_stacks():
     """A 5 s clip (501 frames x 64 mels at 16 kHz hop 160 and at 32 kHz
-    hop 320 alike): the 4-block stack's tiles are 97.5% the convolutions'
-    own products, CNN14's 40.2% (planes of 31 x 4 and 15 x 2 pixels fill
-    48% and 12% of a 256-row tile)."""
+    hop 320 alike) at batch 32: the 4-block stack's tiles are 97.5% the
+    convolutions' own products, CNN14's 96.8% (its 31 x 4 and 15 x 2
+    planes, which alone would fill 48% and 12% of a 256-pixel tile, go 2
+    and 8 to a tile with a zero row between two: 40.2% one a tile)."""
     flop, tiles = _tile_use([64, 128, 256, 512])
     assert flop / 32 == pytest.approx(12.99e9, rel=1e-3)
     assert round(100 * flop / tiles, 1) == 97.5
     flop, tiles = _tile_use([64, 128, 256, 512, 1024, 2048])
     assert flop / 32 == pytest.approx(19.90e9, rel=1e-3)
-    assert round(100 * flop / tiles, 1) == 40.2
+    assert tiles / 32 == pytest.approx(20.56e9, rel=1e-3)
+    assert round(100 * flop / tiles, 1) == 96.8
+    # one image alone: a tile of its own
     assert cv.products(1, 1024, 2048, 31, 4) == (
         2 * 124 * 2048 * 9 * 1024, 2 * 256 * 2048 * 72 * 128)
+    # two images of 31 x 4: one tile of 63 x 4 rows
+    assert cv.products(2, 1024, 2048, 31, 4) == (
+        2 * 2 * 124 * 2048 * 9 * 1024, 2 * 256 * 2048 * 72 * 128)
+    # 32 images of 15 x 2: 4 tiles of 8 images
+    assert cv.products(32, 2048, 2048, 15, 2) == (
+        2 * 32 * 30 * 2048 * 9 * 2048, 2 * 4 * 256 * 2048 * 72 * 256)
     # a 1-channel input takes its 9 taps as 16; Cout and Cin round up
     assert cv.products(2, 1, 64, 16, 16) == (2 * 2 * 256 * 64 * 9,
                                              2 * 2 * 256 * 64 * 16)
@@ -322,8 +331,8 @@ def device():
 def test_cuda_counters_and_head_span_of_a_forward(cell, device):
     """One eval forward of CNN14 at the published widths and 32 kHz:
     12 launches of the 3x3 kernel whose counted products are those of
-    the stack's shapes, and one ``sed::panns.head`` span with device
-    time."""
+    the stack's shapes, blocks 5-6's 4 of them on packed tiles, and one
+    ``sed::panns.head`` span with device time."""
     from torch.profiler import ProfilerActivity, profile
     config = cell.config
     cfg = common.program_audio(config)
@@ -332,15 +341,16 @@ def test_cuda_counters_and_head_span_of_a_forward(cell, device):
         device)
     wav = torch.from_numpy(make_clips(3, cfg.sample_rate, seconds=5,
                                       seed=6)).to(device)
-    counts = (cv.conv3x3.launches, cv.conv3x3.flop, cv.conv3x3.tile_flop)
+    counts = (cv.conv3x3.launches, cv.conv3x3.packed, cv.conv3x3.flop,
+              cv.conv3x3.tile_flop)
     with torch.no_grad(), profile(activities=[
             ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         out = model(wav)
         torch.cuda.synchronize()
-    flop, tiles = _tile_use(config['conv_channels'])
-    assert (cv.conv3x3.launches - counts[0], cv.conv3x3.flop - counts[1],
-            cv.conv3x3.tile_flop - counts[2]) == \
-        (12, flop * 3 // 32, tiles * 3 // 32)
+    flop, tiles = _tile_use(config['conv_channels'], batch=3)
+    assert (cv.conv3x3.launches - counts[0], cv.conv3x3.packed - counts[1],
+            cv.conv3x3.flop - counts[2],
+            cv.conv3x3.tile_flop - counts[3]) == (12, 4, flop, tiles)
     assert out['framewise_output'].shape == (3, 500, 25)
     head = [e for e in prof.events() if e.name == 'sed::panns.head']
     assert len(head) == 1
