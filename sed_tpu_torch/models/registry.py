@@ -1,10 +1,13 @@
 """Model registry: reference ``model_type`` strings -> constructors
 (counterpart of ``sed_tpu/models/registry.py``).
 
-All of ``sed_tpu``'s names: the ``CnnSed`` entries (CNN, CNN + BiGRU,
-CNN + single-block Transformer), the Conformer family and its
-token-pooling variants, VGGish and PANNs CNN14.  ``cls`` picks the model
-class of an entry (default ``CnnSed``).
+``MODEL_REGISTRY`` holds all of ``sed_tpu``'s names: the ``CnnSed``
+entries (CNN, CNN + BiGRU, CNN + single-block Transformer), the Conformer
+family and its token-pooling variants, VGGish and PANNs CNN14.
+``PORT_REGISTRY`` holds the models the port runs that ``sed_tpu`` has
+no counterpart of: HTS-AT (``HTSAT_Swin_Transformer``, eval only).
+``get_model`` builds a name of either.  ``cls`` picks the model class of
+an entry (default ``CnnSed``).
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from torch import nn
 
 from sed_tpu_torch.models.conformer_zoo import (ConformerSed,
                                                 TokenPoolingConformer)
+from sed_tpu_torch.models.htsat import HtsatSed
 from sed_tpu_torch.models.panns import Cnn14DecisionLevelAtt
 from sed_tpu_torch.models.vggish import VGGishSed
 from sed_tpu_torch.models.zoo import CnnSed
@@ -83,6 +87,9 @@ register('VGGish_FrameAvg', cls=VGGishSed, head='avg')
 # PANNs CNN14
 register('Cnn14_DecisionLevelAtt', cls=Cnn14DecisionLevelAtt)
 
+# the port's own models, with no sed_tpu counterpart
+PORT_REGISTRY: Dict[str, Callable] = {'HTSAT_Swin_Transformer': HtsatSed}
+
 
 def get_model(model_type: str, cfg, classes_num: int = 25,
               feature_type: str = 'logmel', **kwargs) -> nn.Module:
@@ -90,10 +97,11 @@ def get_model(model_type: str, cfg, classes_num: int = 25,
     mode; move it with ``.to(device)``).  ``compute_dtype=torch.bfloat16``
     runs a ``CnnSed``'s conv stack in bf16 (the other families keep
     float32 convolutions, as in ``sed_tpu``)."""
-    if model_type not in MODEL_REGISTRY:
+    ctor = MODEL_REGISTRY.get(model_type, PORT_REGISTRY.get(model_type))
+    if ctor is None:
         raise KeyError(
             f'unknown model_type {model_type!r}; available: '
-            f'{sorted(MODEL_REGISTRY)}')
-    return MODEL_REGISTRY[model_type](
+            f'{sorted(MODEL_REGISTRY) + sorted(PORT_REGISTRY)}')
+    return ctor(
         cfg, classes_num=classes_num, feature_type=feature_type,
         **kwargs).eval()
